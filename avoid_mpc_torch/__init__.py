@@ -1,0 +1,15 @@
+"""avoid_mpc_torch — the PyTorch/CUDA port of avoid_mpc_tpu.
+
+The flagship step (per-scenario 3-NN obstacle association + one warm-started
+box-constrained iLQR solve) runs on an NVIDIA H100 through two hand-written
+CUDA kernels (``csrc/knn.cu``, ``csrc/sqp.cu``).  Every kernel has a plain
+PyTorch twin in the module of its wrapper; a CPU tensor takes the twin, a
+CUDA tensor takes the kernel.
+
+The package imports ``torch`` and never ``jax`` or ``avoid_mpc_tpu``.
+"""
+
+from avoid_mpc_torch.config import MPCConfig, MPCWeights  # noqa: F401
+from avoid_mpc_torch.device import resolve_device  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,369 @@
+"""Box-constrained iLQR/SQP solve, batch-first (port of
+``avoid_mpc_tpu/solver/ilqr.py``).
+
+The per-scenario JAX ``solve`` is the semantic source of truth.  Its batched
+plain-PyTorch counterpart here (:func:`solve_plain`) is also the plain twin
+of the fused CUDA kernel (``solver/sqp_cuda.py``).  Each iteration:
+
+1. linearize the cost along the horizon (analytic gap / goal quadratics and
+   closed-form collision derivatives);
+2. backward Riccati sweep with a per-stage projected-Newton box QP and a
+   Levenberg reg;
+3. multi-alpha Armijo line search over closed-loop rollouts
+   u = clip(u_k + a k_k + K_k (x - x_k)), alphas 2^0 .. 2^-(A-1);
+4. reg update: x0.2 on accept, x8 on reject.
+
+``iters`` updates are followed by one more linearize + sweep whose projected
+gradient certifies the returned iterate (``grad_norm``).  The dynamics are
+LTI without drag, so one affine map (Ad, Bd, cvec) serves every stage,
+iteration and candidate.
+
+Routing (:func:`solve_batched`): a CUDA float32 call runs the fused kernel; a
+CPU call runs the plain code.  The drag path and the per-phase kernels
+(``SolverHyper.fuse=False``) belong to a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from avoid_mpc_torch.config import CONTROL_DIM, STATE_DIM, MPCConfig
+from avoid_mpc_torch.device import resolve_device
+from avoid_mpc_torch.models.costs import (
+    CostParams,
+    collision_quadratics,
+    node_radius,
+    trajectory_cost,
+)
+from avoid_mpc_torch.models.quadrotor import DynamicsParams, rk4_step
+from avoid_mpc_torch.solver.boxqp import boxqp, masked_newton_matrix
+from avoid_mpc_torch.solver.linalg import solve4_mat
+
+
+class MPCProblem(NamedTuple):
+    """Problem data, batch-first: x0 (B,10), ref (B,N,10) (slots 0..N-2 used
+    by the gap cost), obstacles (B,N,K,3) (slots 0..N-2 used), target (B,10).
+    :func:`solve` takes the same fields without the batch axis."""
+
+    x0: torch.Tensor
+    ref: torch.Tensor
+    obstacles: torch.Tensor
+    target: torch.Tensor
+
+
+class SolverParams(NamedTuple):
+    """Runtime (non-shape) solver parameters."""
+
+    dt: torch.Tensor  # scalar
+    dyn: DynamicsParams
+    cost: CostParams
+    u_lower: torch.Tensor  # (4,)
+    u_upper: torch.Tensor  # (4,)
+
+    @staticmethod
+    def from_config(cfg: MPCConfig, dtype=torch.float32, device="cuda") -> "SolverParams":
+        dev = resolve_device(device)
+        return SolverParams(
+            dt=torch.tensor(cfg.mpc_dt, dtype=dtype, device=dev),
+            dyn=DynamicsParams.from_config(cfg, dtype=dtype, device=dev),
+            cost=CostParams.from_config(cfg, dtype=dtype, device=dev),
+            u_lower=torch.tensor(cfg.u_lower, dtype=dtype, device=dev),
+            u_upper=torch.tensor(cfg.u_upper, dtype=dtype, device=dev),
+        )
+
+
+class SolverHyper(NamedTuple):
+    """Shape and schedule knobs."""
+
+    iters: int = 10
+    n_alphas: int = 8  # line-search candidates 2^0 .. 2^-(n-1)
+    boxqp_iters: int = 4
+    reg_init: float = 1e-6
+    reg_min: float = 1e-9
+    reg_max: float = 1e6
+    grad_tol: float = 1e-4  # convergence threshold on the projected gradient
+    # Exit the fused kernel's loop at grad_tol.  The CUDA kernel runs one
+    # scenario per thread, so its exit is per scenario and True / False are
+    # the same computation; the plain solve never exits early (as the XLA
+    # solve).  Kept for the JAX interface.
+    tol_exit: bool = True
+    # Run the whole solve as one kernel on CUDA.  False selects the
+    # per-phase kernels, which are not ported yet.
+    fuse: bool = True
+
+    @staticmethod
+    def from_config(cfg: MPCConfig, fast: bool = False) -> "SolverHyper":
+        return SolverHyper(
+            iters=cfg.sqp_iters_fast if fast else cfg.sqp_iters,
+            n_alphas=cfg.line_search_alphas,
+            boxqp_iters=cfg.boxqp_iters,
+            reg_init=cfg.reg_init,
+            reg_min=cfg.reg_min,
+            reg_max=cfg.reg_max,
+        )
+
+
+class SolveResult(NamedTuple):
+    us: torch.Tensor  # (B, N, 4) optimal controls; us[:, 0] is the command
+    xs: torch.Tensor  # (B, N+1, 10) predicted trajectory
+    cost: torch.Tensor  # (B,) final objective
+    grad_norm: torch.Tensor  # (B,) sup-norm of the projected gradient
+    converged: torch.Tensor  # (B,) bool: grad_norm < grad_tol
+    reg: torch.Tensor  # (B,) final regularization
+    iterations: torch.Tensor  # (B,) int32 updates run (the kernel stops at grad_tol)
+
+
+def _affine_dynamics(sp: SolverParams, dtype):
+    """Exact affine form x_{k+1} = Ad x_k + Bd u_k + cvec of the drag-free
+    RK4 transition F (RK4 of an LTI system is affine).  Computed once per
+    solve from one batched float64 evaluation of F at the origin and the 14
+    unit vectors: cvec = F(0, 0), Ad[:, j] = F(e_j, 0) - cvec,
+    Bd[:, j] = F(0, e_j) - cvec, exact to float64 rounding.  (Forward-mode
+    ``torch.func.jacfwd`` gives the same map at a host cost that left the
+    GPU idle for most of a tick.)"""
+    dev = sp.u_lower.device
+    f64 = torch.float64
+    nx, nu = STATE_DIM, CONTROL_DIM
+    X = torch.cat([torch.zeros(1, nx, dtype=f64, device=dev), torch.eye(nx, dtype=f64, device=dev),
+                   torch.zeros(nu, nx, dtype=f64, device=dev)])
+    U = torch.cat([torch.zeros(1 + nx, nu, dtype=f64, device=dev), torch.eye(nu, dtype=f64, device=dev)])
+    dyn = sp.dyn._replace(tau=sp.dyn.tau.to(f64), gain=sp.dyn.gain.to(f64),
+                          drag_coefficient=sp.dyn.drag_coefficient.to(f64))
+    Y = rk4_step(X, U, sp.dt.to(f64), dyn)
+    cvec = Y[0]
+    Ad = (Y[1 : 1 + nx] - cvec).T
+    Bd = (Y[1 + nx :] - cvec).T
+    return Ad.to(dtype), Bd.to(dtype), cvec.to(dtype)
+
+
+# state indices of the collision-relevant (position, velocity) sub-state
+_PV_IDX = (0, 1, 2, 4, 5, 6)
+
+
+def _gap_quadratic(ref: torch.Tensor, cp: CostParams) -> torch.Tensor:
+    """Gap-cost Hessian 2 R(yaw)^T diag(q_path) R(yaw): diagonal except the
+    yaw-rotated 2x2 blocks at (0,1) and (4,5).  ref (..., 10) -> (..., 10, 10)."""
+    q = cp.q_path
+    c = torch.cos(ref[..., 3])
+    s = torch.sin(ref[..., 3])
+
+    def block(qa, qb):
+        return qa * c * c + qb * s * s, (qa - qb) * c * s, qa * s * s + qb * c * c
+
+    p00, p01, p11 = block(q[0], q[1])
+    v00, v01, v11 = block(q[4], q[5])
+    M = torch.diag_embed(q.expand(ref.shape[:-1] + (STATE_DIM,))).clone()
+    M[..., 0, 0] = p00
+    M[..., 1, 1] = p11
+    M[..., 0, 1] = p01
+    M[..., 1, 0] = p01
+    M[..., 4, 4] = v00
+    M[..., 5, 5] = v11
+    M[..., 4, 5] = v01
+    M[..., 5, 4] = v01
+    return 2.0 * M
+
+
+def _linearize(problem: MPCProblem, xs, us, sp: SolverParams):
+    """Per-node state-cost gradient/Hessian for nodes 1..N, (B,N,10) and
+    (B,N,10,10), and the control-cost gradient (B,N,4) / Hessian (4,4)."""
+    n = us.shape[-2]
+    cp = sp.cost
+    interior_x = xs[:, 1:n]
+    ref = problem.ref[:, : n - 1]
+    obs = problem.obstacles[:, : n - 1]
+    pv = list(_PV_IDX)
+
+    M = _gap_quadratic(ref, cp)
+    cx_int = torch.einsum("...ij,...j->...i", M, interior_x - ref)
+    col_g, col_h = collision_quadratics(interior_x[..., pv], obs, node_radius(ref, cp), cp)
+    cx_int[..., pv] += col_g
+    cxx_int = M
+    cxx_int[..., torch.tensor(pv)[:, None], torch.tensor(pv)[None, :]] += col_h
+
+    cx_term = 2.0 * cp.q_goal * (xs[:, n] - problem.target)
+    cxx_term = torch.diag(2.0 * cp.q_goal).expand(cx_term.shape[:-1] + (STATE_DIM, STATE_DIM))
+
+    cx = torch.cat([cx_int, cx_term[:, None]], dim=1)
+    cxx = torch.cat([cxx_int, cxx_term[:, None]], dim=1)
+    lu = 2.0 * cp.q_u * (us - cp.u_hover)
+    luu = torch.diag(2.0 * cp.q_u)
+    return cx, cxx, lu, luu
+
+
+def _backward(us, Ad, Bd, cx, cxx, lu, luu, reg, sp: SolverParams, hp: SolverHyper):
+    """Backward Riccati sweep with per-stage box QPs over the batch.
+
+    The carry (V_x, V_xx) is the value expansion at node k+1 without that
+    node's state cost, which each stage adds first.  Levenberg reg: reg I
+    through B damps the value curvature, and a direct reg I on Quu keeps the
+    QP positive definite.  Returns (kff (B,N,4), K (B,N,4,10), dV1 (B,),
+    dV2 (B,), projected-gradient sup-norm (B,))."""
+    b, n, nu = us.shape
+    nx = cx.shape[-1]
+    dtype = us.dtype
+    eye = torch.eye(nx, dtype=dtype, device=us.device)
+    eye_u = torch.eye(nu, dtype=dtype, device=us.device)
+    reg3 = reg[:, None, None]
+
+    Vx = torch.zeros(b, nx, dtype=dtype, device=us.device)
+    Vxx = torch.zeros(b, nx, nx, dtype=dtype, device=us.device)
+    kffs, Ks = [None] * n, [None] * n
+    dV1 = torch.zeros(b, dtype=dtype, device=us.device)
+    dV2 = torch.zeros_like(dV1)
+    pg = torch.zeros_like(dV1)
+    for k in reversed(range(n)):
+        u_k = us[:, k]
+        Wx = Vx + cx[:, k]
+        Wxx = Vxx + cxx[:, k]
+        Qx = Wx @ Ad
+        Qu = lu[:, k] + Wx @ Bd
+        Qxx = Ad.T @ Wxx @ Ad
+        BtW = Bd.T @ (Wxx + reg3 * eye)
+        Qux = BtW @ Ad
+        Quu = luu + BtW @ Bd + reg3 * eye_u
+        Quu = 0.5 * (Quu + Quu.transpose(-1, -2))
+
+        k_ff, free = boxqp(
+            Quu, Qu, sp.u_lower - u_k, sp.u_upper - u_k, torch.zeros_like(u_k),
+            iters=hp.boxqp_iters,
+        )
+        mf = free.to(dtype)
+        K = -solve4_mat(masked_newton_matrix(Quu, mf), Qux * mf[..., :, None])
+
+        KT = K.transpose(-1, -2)
+        Quu_k = torch.einsum("bij,bj->bi", Quu, k_ff)
+        Vx = Qx + torch.einsum("bij,bj->bi", KT, Quu_k + Qu) + torch.einsum(
+            "bji,bj->bi", Qux, k_ff
+        )
+        Vxx = Qxx + KT @ Quu @ K + KT @ Qux + Qux.transpose(-1, -2) @ K
+        Vxx = 0.5 * (Vxx + Vxx.transpose(-1, -2))
+
+        dV1 = dV1 + torch.sum(k_ff * Qu, dim=-1)
+        dV2 = dV2 + 0.5 * torch.sum(k_ff * Quu_k, dim=-1)
+        pg = torch.maximum(pg, torch.amax(torch.abs(torch.where(free, Qu, 0.0)), dim=-1))
+        kffs[k], Ks[k] = k_ff, K
+    return torch.stack(kffs, dim=1), torch.stack(Ks, dim=1), dV1, dV2, pg
+
+
+def _lti_step(x, u, Ad, Bd, cvec):
+    return x @ Ad.T + u @ Bd.T + cvec
+
+
+def _rollout_lti(x0, us, Ad, Bd, cvec):
+    xs = [x0]
+    x = x0
+    for k in range(us.shape[1]):
+        x = _lti_step(x, us[:, k], Ad, Bd, cvec)
+        xs.append(x)
+    return torch.stack(xs, dim=1)
+
+
+def _closed_loop_rollout(x0, us, xs_ref, k_ff, K, alpha, sp: SolverParams, Ad, Bd, cvec):
+    """Forward pass with feedback: u = clip(u_k + a k_k + K_k (x - x_k))."""
+    x = x0
+    xs, us_new = [x0], []
+    for k in range(us.shape[1]):
+        u = us[:, k] + alpha * k_ff[:, k] + torch.einsum("bij,bj->bi", K[:, k], x - xs_ref[:, k])
+        u = torch.clamp(u, sp.u_lower, sp.u_upper)
+        x = _lti_step(x, u, Ad, Bd, cvec)
+        xs.append(x)
+        us_new.append(u)
+    return torch.stack(xs, dim=1), torch.stack(us_new, dim=1)
+
+
+def _total_cost(problem: MPCProblem, xs, us, cp: CostParams):
+    return trajectory_cost(xs, us, problem.ref, problem.obstacles, problem.target, cp)
+
+
+def _line_search(problem, us, xs, k_ff, K, dV1, dV2, cost, sp, hp, Ad, Bd, cvec):
+    """Armijo line search over the alphas 2^-i, i = 0..A-1.
+
+    A candidate is acceptable when its improvement exceeds 1e-4 of the
+    predicted decrease max(-(a dV1 + a^2 dV2), 0); of the acceptable ones
+    the cheapest wins, ties to the larger alpha (strict < in alpha order).
+    Returns (us, xs, cost, any_ok) with the incumbent kept where none is
+    acceptable."""
+    best_cost = torch.full_like(cost, float("inf"))
+    best_us, best_xs = us, xs
+    any_ok = torch.zeros_like(cost, dtype=torch.bool)
+    for i in range(hp.n_alphas):
+        alpha = 2.0**-i
+        xs_a, us_a = _closed_loop_rollout(problem.x0, us, xs, k_ff, K, alpha, sp, Ad, Bd, cvec)
+        c = _total_cost(problem, xs_a, us_a, sp.cost)
+        expected = alpha * dV1 + (alpha * alpha) * dV2
+        ok = (cost - c) > 1e-4 * torch.clamp_min(-expected, 0.0)
+        take = ok & (c < best_cost)
+        best_cost = torch.where(take, c, best_cost)
+        best_us = torch.where(take[:, None, None], us_a, best_us)
+        best_xs = torch.where(take[:, None, None], xs_a, best_xs)
+        any_ok = any_ok | ok
+    return best_us, best_xs, torch.where(any_ok, best_cost, cost), any_ok
+
+
+def solve_plain(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper = SolverHyper()):
+    """The batched solve in plain PyTorch, on any device and dtype.
+
+    Runs the XLA ``solve`` schedule: ``iters`` updates, then the certificate
+    pass; ``grad_tol`` is only reported.  This is the plain twin of the
+    fused CUDA kernel, which runs the same steps per scenario but stops a
+    scenario's updates after the iteration whose sweep certified it."""
+    if sp.dyn.use_drag:
+        raise NotImplementedError("the drag (nonlinear dynamics) solve path is not ported yet")
+    dtype = us_init.dtype
+    Ad, Bd, cvec = _affine_dynamics(sp, dtype)
+    us = torch.clamp(us_init, sp.u_lower, sp.u_upper)
+    xs = _rollout_lti(problems.x0, us, Ad, Bd, cvec)
+    cost = _total_cost(problems, xs, us, sp.cost)
+    reg = torch.full_like(cost, hp.reg_init)
+    pg = torch.full_like(cost, float("inf"))
+    for i in range(hp.iters + 1):
+        cx, cxx, lu, luu = _linearize(problems, xs, us, sp)
+        k_ff, K, dV1, dV2, pg = _backward(us, Ad, Bd, cx, cxx, lu, luu, reg, sp, hp)
+        if i == hp.iters:  # certificate pass: no update
+            break
+        us, xs, cost, any_ok = _line_search(
+            problems, us, xs, k_ff, K, dV1, dV2, cost, sp, hp, Ad, Bd, cvec
+        )
+        reg = torch.where(
+            any_ok,
+            torch.clamp_min(reg * 0.2, hp.reg_min),
+            torch.clamp_max(torch.clamp_min(reg, 1e-4) * 8.0, hp.reg_max),
+        )
+    return SolveResult(
+        us=us, xs=xs, cost=cost, grad_norm=pg, converged=pg < hp.grad_tol, reg=reg,
+        iterations=torch.full(cost.shape, hp.iters, dtype=torch.int32, device=cost.device),
+    )
+
+
+def solve_batched(
+    problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper = SolverHyper()
+) -> SolveResult:
+    """Batch of independent MPC solves; every field of ``problems`` and
+    ``us_init`` carries a leading scenario axis.  Runs through
+    ``solver/sqp_cuda.sqp_solve``: CUDA float32 launches the fused kernel,
+    CPU runs :func:`solve_plain`, anything else raises."""
+    if us_init.is_cuda and not hp.fuse:
+        raise NotImplementedError("the per-phase CUDA kernels (fuse=False) are not ported yet")
+    from avoid_mpc_torch.solver.sqp_cuda import sqp_solve  # imports this module
+
+    return sqp_solve(problems, us_init, sp, hp)
+
+
+def solve(problem: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper = SolverHyper()) -> SolveResult:
+    """Solve one MPC instance (no batch axis): a batch of one."""
+    res = solve_batched(MPCProblem(*(a[None] for a in problem)), us_init[None], sp, hp)
+    return SolveResult(*(a[0] for a in res))
+
+
+def hover_warm_start(n: int, dtype=torch.float32, device="cuda", batch: int | None = None):
+    """Hover-thrust control guess, (n, 4) or (batch, n, 4)."""
+    shape = (n, CONTROL_DIM) if batch is None else (batch, n, CONTROL_DIM)
+    u = torch.zeros(shape, dtype=dtype, device=resolve_device(device))
+    u[..., 2] = 9.81
+    return u
+
+
+assert STATE_DIM == 10 and CONTROL_DIM == 4
