@@ -56,26 +56,7 @@
 #define NU 4
 #define SQP_BLOCK 32
 
-struct SqpConsts {
-  float Ad[NX * NX];
-  float Bd[NX * NU];
-  float cvec[NX];
-  float lo[NU];
-  float hi[NU];
-  float qgoal[NX];
-  float qpath[NX];
-  float qu[NU];
-  float uh[NU];
-  float lam;
-  float radius;
-  float lam_omni;
-  float margin_v;
-};
-
-__constant__ SqpConsts C;
-
-#define AD(i, j) C.Ad[(i) * NX + (j)]
-#define BD(i, j) C.Bd[(i) * NU + (j)]
+#include "mpc_cost.cuh"
 
 // This thread's column of the [field][B] workspace.
 struct Work {
@@ -110,10 +91,6 @@ struct Problem {
   int n_obs;
 };
 
-__device__ __forceinline__ float softplus_f(float x) {
-  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
-}
-
 // (softplus(x), sigmoid(x)) sharing one exp(-|x|)
 __device__ __forceinline__ void softplus_sigmoid(float x, float& sp, float& sig) {
   const float e = expf(-fabsf(x));
@@ -122,73 +99,10 @@ __device__ __forceinline__ void softplus_sigmoid(float x, float& sp, float& sig)
   sp = fmaxf(x, 0.0f) + log1pf(e);
 }
 
-__device__ __forceinline__ void lti_step(float x[NX], const float u[NU]) {
-  float xn[NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    float acc = C.cvec[i];
-#pragma unroll
-    for (int j = 0; j < NX; ++j) acc += AD(i, j) * x[j];
-#pragma unroll
-    for (int j = 0; j < NU; ++j) acc += BD(i, j) * u[j];
-    xn[i] = acc;
-  }
-#pragma unroll
-  for (int i = 0; i < NX; ++i) x[i] = xn[i];
-}
-
-__device__ __forceinline__ float control_cost(const float u[NU]) {
-  float c = 0.0f;
-#pragma unroll
-  for (int i = 0; i < NU; ++i) {
-    const float du = u[i] - C.uh[i];
-    c += C.qu[i] * du * du;
-  }
-  return c;
-}
-
-__device__ __forceinline__ float terminal_cost(const float x[NX], const float* tgt) {
-  float c = 0.0f;
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    const float d = x[i] - tgt[i];
-    c += C.qgoal[i] * d * d;
-  }
-  return c;
-}
-
-// Path-gap + collision cost of node k+1 against ref / obstacle slot k.
-__device__ float interior_cost(const float x[NX], const float* refk, const float* obsk,
-                               int n_obs) {
-  const float cy = cosf(refk[3]);
-  const float sy = sinf(refk[3]);
-  float d[NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) d[i] = x[i] - refk[i];
-  const float rot[NX] = {d[0] * cy + d[1] * sy, -d[0] * sy + d[1] * cy, d[2], d[3],
-                         d[4] * cy + d[5] * sy, -d[4] * sy + d[5] * cy, d[6], d[7], d[8], d[9]};
-  float c = 0.0f;
-#pragma unroll
-  for (int i = 0; i < NX; ++i) c += C.qpath[i] * rot[i] * rot[i];
-  const float rv2 = refk[4] * refk[4] + refk[5] * refk[5] + refk[6] * refk[6];
-  const float r_eff = C.radius + C.margin_v * sqrtf(rv2);
-  for (int o = 0; o < n_obs; ++o) {
-    const float* ob = obsk + o * 3;
-    const float vx = ob[0] - x[0];
-    const float vy = ob[1] - x[1];
-    const float vz = ob[2] - x[2];
-    const float d2 = fmaxf(vx * vx + vy * vy + vz * vz, 1e-12f);
-    const float dist = sqrtf(d2);
-    const float v_along = (x[4] * vx + x[5] * vy + x[6] * vz) / dist;
-    const float v_toward = sqrtf(v_along * v_along + 1e-8f);
-    c += (C.lam * v_toward + C.lam_omni) * softplus_f(-32.0f * (dist - r_eff));
-  }
-  return c;
-}
-
 __device__ __forceinline__ float node_cost(const float x[NX], const Problem& P, int k, int N) {
-  return k < N - 1 ? interior_cost(x, P.ref + k * NX, P.obs + k * P.n_obs * 3, P.n_obs)
-                   : terminal_cost(x, P.tgt);
+  return k < N - 1
+             ? interior_cost<SoftplusExact>(x, P.ref + k * NX, P.obs + k * P.n_obs * 3, P.n_obs)
+             : terminal_cost(x, P.tgt);
 }
 
 // Clip the warm start into W.u, roll it into W.x, return its cost.
@@ -245,128 +159,9 @@ __device__ float ls_rollout(const Problem& P, const Work& W, float alpha, int sl
   return total;
 }
 
-// ---- 4x4 helpers (solver/linalg.py, solver/boxqp.py) ----
+// ---- 4x4 helpers and the box QP (solver/linalg.py, solver/boxqp.py) ----
 
-__device__ __forceinline__ void mv4(const float H[NU][NU], const float z[NU], float out[NU]) {
-#pragma unroll
-  for (int c = 0; c < NU; ++c) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int d = 0; d < NU; ++d) acc += H[c][d] * z[d];
-    out[c] = acc;
-  }
-}
-
-// Closed-form cofactor inverse (solver/linalg.py::inv4).
-__device__ __forceinline__ void inv4(const float a[NU][NU], float out[NU][NU]) {
-  const float s0 = a[2][0] * a[3][1] - a[2][1] * a[3][0];
-  const float s1 = a[2][0] * a[3][2] - a[2][2] * a[3][0];
-  const float s2 = a[2][0] * a[3][3] - a[2][3] * a[3][0];
-  const float s3 = a[2][1] * a[3][2] - a[2][2] * a[3][1];
-  const float s4 = a[2][1] * a[3][3] - a[2][3] * a[3][1];
-  const float s5 = a[2][2] * a[3][3] - a[2][3] * a[3][2];
-  const float c0 = a[0][0] * a[1][1] - a[0][1] * a[1][0];
-  const float c1 = a[0][0] * a[1][2] - a[0][2] * a[1][0];
-  const float c2 = a[0][0] * a[1][3] - a[0][3] * a[1][0];
-  const float c3 = a[0][1] * a[1][2] - a[0][2] * a[1][1];
-  const float c4 = a[0][1] * a[1][3] - a[0][3] * a[1][1];
-  const float c5 = a[0][2] * a[1][3] - a[0][3] * a[1][2];
-  const float det = c0 * s5 - c1 * s4 + c2 * s3 + c3 * s2 - c4 * s1 + c5 * s0;
-  const float r = 1.0f / det;
-  out[0][0] = (a[1][1] * s5 - a[1][2] * s4 + a[1][3] * s3) * r;
-  out[0][1] = (-a[0][1] * s5 + a[0][2] * s4 - a[0][3] * s3) * r;
-  out[0][2] = (a[3][1] * c5 - a[3][2] * c4 + a[3][3] * c3) * r;
-  out[0][3] = (-a[2][1] * c5 + a[2][2] * c4 - a[2][3] * c3) * r;
-  out[1][0] = (-a[1][0] * s5 + a[1][2] * s2 - a[1][3] * s1) * r;
-  out[1][1] = (a[0][0] * s5 - a[0][2] * s2 + a[0][3] * s1) * r;
-  out[1][2] = (-a[3][0] * c5 + a[3][2] * c2 - a[3][3] * c1) * r;
-  out[1][3] = (a[2][0] * c5 - a[2][2] * c2 + a[2][3] * c1) * r;
-  out[2][0] = (a[1][0] * s4 - a[1][1] * s2 + a[1][3] * s0) * r;
-  out[2][1] = (-a[0][0] * s4 + a[0][1] * s2 - a[0][3] * s0) * r;
-  out[2][2] = (a[3][0] * c4 - a[3][1] * c2 + a[3][3] * c0) * r;
-  out[2][3] = (-a[2][0] * c4 + a[2][1] * c2 - a[2][3] * c0) * r;
-  out[3][0] = (-a[1][0] * s3 + a[1][1] * s1 - a[1][2] * s0) * r;
-  out[3][1] = (a[0][0] * s3 - a[0][1] * s1 + a[0][2] * s0) * r;
-  out[3][2] = (-a[3][0] * c3 + a[3][1] * c1 - a[3][2] * c0) * r;
-  out[3][3] = (a[2][0] * c3 - a[2][1] * c1 + a[2][2] * c0) * r;
-}
-
-// Masked Newton system M H M + (I - diag(m)).
-__device__ __forceinline__ void hff_masked(const float H[NU][NU], const float mf[NU],
-                                           float out[NU][NU]) {
-#pragma unroll
-  for (int c = 0; c < NU; ++c) {
-#pragma unroll
-    for (int d = 0; d < NU; ++d) {
-      float e = H[c][d] * mf[c] * mf[d];
-      if (c == d) e += 1.0f - mf[c];
-      out[c][d] = e;
-    }
-  }
-}
-
-__device__ __forceinline__ float qp_objective(const float H[NU][NU], const float q[NU],
-                                              const float z[NU]) {
-  float Hz[NU];
-  mv4(H, z, Hz);
-  float o = 0.0f;
-#pragma unroll
-  for (int c = 0; c < NU; ++c) o += 0.5f * z[c] * Hz[c] + q[c] * z[c];
-  return o;
-}
-
-__device__ __forceinline__ void free_mask(const float H[NU][NU], const float q[NU],
-                                          const float z[NU], const float lb[NU],
-                                          const float ub[NU], float g[NU], float mf[NU]) {
-  mv4(H, z, g);
-#pragma unroll
-  for (int c = 0; c < NU; ++c) {
-    g[c] += q[c];
-    const bool clamp_lo = (z[c] <= lb[c] + 1e-8f) && (g[c] > 0.0f);
-    const bool clamp_hi = (z[c] >= ub[c] - 1e-8f) && (g[c] < 0.0f);
-    mf[c] = (clamp_lo || clamp_hi) ? 0.0f : 1.0f;
-  }
-}
-
-// Projected-Newton box QP: min 0.5 z'Hz + q'z, lb <= z <= ub, from z = 0,
-// each step backtracking over (1, 0.5, 0.25).  Returns z and the free mask.
-__device__ void boxqp4(const float H[NU][NU], const float q[NU], const float lb[NU],
-                       const float ub[NU], int iters, float z[NU], float mf[NU]) {
-#pragma unroll
-  for (int c = 0; c < NU; ++c) z[c] = fminf(fmaxf(0.0f, lb[c]), ub[c]);
-  float g[NU];
-  for (int it = 0; it < iters; ++it) {
-    free_mask(H, q, z, lb, ub, g, mf);
-    float Hff[NU][NU], inv[NU][NU], gm[NU], step[NU], dz[NU];
-    hff_masked(H, mf, Hff);
-    inv4(Hff, inv);
-#pragma unroll
-    for (int c = 0; c < NU; ++c) gm[c] = g[c] * mf[c];
-    mv4(inv, gm, step);
-#pragma unroll
-    for (int c = 0; c < NU; ++c) dz[c] = -step[c] * mf[c];
-    float best[NU];
-    float best_obj = qp_objective(H, q, z);
-#pragma unroll
-    for (int c = 0; c < NU; ++c) best[c] = z[c];
-    const float alphas[3] = {1.0f, 0.5f, 0.25f};
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      float cand[NU];
-#pragma unroll
-      for (int c = 0; c < NU; ++c) cand[c] = fminf(fmaxf(z[c] + alphas[a] * dz[c], lb[c]), ub[c]);
-      const float o = qp_objective(H, q, cand);
-      if (o < best_obj) {
-        best_obj = o;
-#pragma unroll
-        for (int c = 0; c < NU; ++c) best[c] = cand[c];
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < NU; ++c) z[c] = best[c];
-  }
-  free_mask(H, q, z, lb, ub, g, mf);
-}
+#include "boxqp4.cuh"
 
 // ---- linearization (solver/ilqr.py::_linearize semantics) ----
 
@@ -785,7 +580,7 @@ extern "C" int sqp_solve_launch(const void* consts, int n_consts, const void* x0
                                 int iters, int n_alphas, int bq_iters, float reg_init,
                                 float reg_min, float reg_max, float grad_tol, int device,
                                 void* stream) {
-  if (n_consts * sizeof(float) != sizeof(SqpConsts)) return (int)cudaErrorInvalidValue;
+  if (n_consts * sizeof(float) != sizeof(MpcConsts)) return (int)cudaErrorInvalidValue;
   if (ws_floats != sqp_ws_fields(N) * B) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -793,7 +588,7 @@ extern "C" int sqp_solve_launch(const void* consts, int n_consts, const void* x0
   // The constants are a device tensor: copy them device-to-device on the
   // launch stream, so no host synchronisation is needed.  One __constant__
   // block per process: launches on other streams must not interleave.
-  err = cudaMemcpyToSymbolAsync(C, consts, sizeof(SqpConsts), 0, cudaMemcpyDeviceToDevice, s);
+  err = cudaMemcpyToSymbolAsync(C, consts, sizeof(MpcConsts), 0, cudaMemcpyDeviceToDevice, s);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + SQP_BLOCK - 1) / SQP_BLOCK);
   const dim3 block(SQP_BLOCK);

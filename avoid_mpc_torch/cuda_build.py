@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``.  Builds
 happen at first use into ``build/torch_kernels/`` beside the package (listed
-in ``.gitignore``); the library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a stale library is never loaded.
+in ``.gitignore``); the library's file name carries a hash of its source,
+of every shared header ``csrc/*.cuh`` and of the flags, so an edited source
+or header is rebuilt and a stale library is never loaded.
 ``build()`` compiles several sources at once, one ``nvcc`` each, in
 parallel.  The ``-Xptxas -v`` report (registers, spills) is printed when a
 library is built and kept beside it.
@@ -25,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-SOURCES = ("knn", "sqp")
+SOURCES = ("knn", "sqp", "backward", "forward", "op_chain")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,8 +46,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

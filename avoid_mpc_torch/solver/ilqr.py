@@ -3,7 +3,9 @@
 
 The per-scenario JAX ``solve`` is the semantic source of truth.  Its batched
 plain-PyTorch counterpart here (:func:`solve_plain`) is also the plain twin
-of the fused CUDA kernel (``solver/sqp_cuda.py``).  Each iteration:
+of the fused CUDA kernel (``solver/sqp_cuda.py``), and its two phases
+(:func:`riccati_backward_plain`, :func:`line_search_plain`) are the plain
+twins of the per-phase kernels.  Each iteration:
 
 1. linearize the cost along the horizon (analytic gap / goal quadratics and
    closed-form collision derivatives);
@@ -18,9 +20,13 @@ gradient certifies the returned iterate (``grad_norm``).  The dynamics are
 LTI without drag, so one affine map (Ad, Bd, cvec) serves every stage,
 iteration and candidate.
 
-Routing (:func:`solve_batched`): a CUDA float32 call runs the fused kernel; a
-CPU call runs the plain code.  The drag path and the per-phase kernels
-(``SolverHyper.fuse=False``) belong to a later slice.
+Routing (:func:`solve_batched`): ``SolverHyper.fuse=True`` (the default) runs
+the whole solve as one CUDA kernel; ``fuse=False`` runs the per-phase loop
+(:func:`solve_phased`): torch linearization, then the Riccati-sweep kernel
+(``solver/backward_cuda.py``) and the line-search kernel
+(``solver/forward_cuda.py``) per iteration.  A CUDA float32 call launches
+the kernels, a CPU call runs the plain twins, anything else raises.  The
+drag path belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from typing import NamedTuple
 
 import torch
 
-from avoid_mpc_torch.config import CONTROL_DIM, STATE_DIM, MPCConfig
+from avoid_mpc_torch.config import CONTROL_DIM, GRAVITY, STATE_DIM, MPCConfig
 from avoid_mpc_torch.device import resolve_device
 from avoid_mpc_torch.models.costs import (
     CostParams,
@@ -90,7 +96,7 @@ class SolverHyper(NamedTuple):
     # solve).  Kept for the JAX interface.
     tol_exit: bool = True
     # Run the whole solve as one kernel on CUDA.  False selects the
-    # per-phase kernels, which are not ported yet.
+    # per-phase loop: linearize, sweep kernel, line-search kernel.
     fuse: bool = True
 
     @staticmethod
@@ -138,50 +144,46 @@ def _affine_dynamics(sp: SolverParams, dtype):
     return Ad.to(dtype), Bd.to(dtype), cvec.to(dtype)
 
 
-# state indices of the collision-relevant (position, velocity) sub-state
-_PV_IDX = (0, 1, 2, 4, 5, 6)
-
-
 def _gap_quadratic(ref: torch.Tensor, cp: CostParams) -> torch.Tensor:
     """Gap-cost Hessian 2 R(yaw)^T diag(q_path) R(yaw): diagonal except the
     yaw-rotated 2x2 blocks at (0,1) and (4,5).  ref (..., 10) -> (..., 10, 10)."""
     q = cp.q_path
-    c = torch.cos(ref[..., 3])
-    s = torch.sin(ref[..., 3])
-
-    def block(qa, qb):
-        return qa * c * c + qb * s * s, (qa - qb) * c * s, qa * s * s + qb * c * c
-
-    p00, p01, p11 = block(q[0], q[1])
-    v00, v01, v11 = block(q[4], q[5])
+    c = torch.cos(ref[..., 3:4])
+    s = torch.sin(ref[..., 3:4])
+    qa, qb = q[0:6:4], q[1:6:4]  # (q_x, q_vx), (q_y, q_vy): the position and velocity blocks
+    d00 = qa * c * c + qb * s * s
+    d01 = (qa - qb) * c * s
+    d11 = qa * s * s + qb * c * c
+    blocks = torch.stack([d00, d01, d01, d11], dim=-1).unflatten(-1, (2, 2))  # (..., 2, 2, 2)
     M = torch.diag_embed(q.expand(ref.shape[:-1] + (STATE_DIM,))).clone()
-    M[..., 0, 0] = p00
-    M[..., 1, 1] = p11
-    M[..., 0, 1] = p01
-    M[..., 1, 0] = p01
-    M[..., 4, 4] = v00
-    M[..., 5, 5] = v11
-    M[..., 4, 5] = v01
-    M[..., 5, 4] = v01
+    M[..., 0:2, 0:2] = blocks[..., 0, :, :]
+    M[..., 4:6, 4:6] = blocks[..., 1, :, :]
     return 2.0 * M
 
 
 def _linearize(problem: MPCProblem, xs, us, sp: SolverParams):
     """Per-node state-cost gradient/Hessian for nodes 1..N, (B,N,10) and
-    (B,N,10,10), and the control-cost gradient (B,N,4) / Hessian (4,4)."""
+    (B,N,10,10), and the control-cost gradient (B,N,4) / Hessian (4,4).
+
+    The collision terms act on the (position, velocity) sub-state, state
+    indices 0:3 and 4:7; they are read and added through slices, so a CUDA
+    call copies nothing from the host."""
     n = us.shape[-2]
     cp = sp.cost
     interior_x = xs[:, 1:n]
     ref = problem.ref[:, : n - 1]
     obs = problem.obstacles[:, : n - 1]
-    pv = list(_PV_IDX)
 
     M = _gap_quadratic(ref, cp)
     cx_int = torch.einsum("...ij,...j->...i", M, interior_x - ref)
-    col_g, col_h = collision_quadratics(interior_x[..., pv], obs, node_radius(ref, cp), cp)
-    cx_int[..., pv] += col_g
+    pv_x = torch.cat([interior_x[..., 0:3], interior_x[..., 4:7]], dim=-1)
+    col_g, col_h = collision_quadratics(pv_x, obs, node_radius(ref, cp), cp)
+    cx_int[..., 0:3] += col_g[..., 0:3]
+    cx_int[..., 4:7] += col_g[..., 3:6]
     cxx_int = M
-    cxx_int[..., torch.tensor(pv)[:, None], torch.tensor(pv)[None, :]] += col_h
+    for rows, hr in ((slice(0, 3), slice(0, 3)), (slice(4, 7), slice(3, 6))):
+        cxx_int[..., rows, 0:3] += col_h[..., hr, 0:3]
+        cxx_int[..., rows, 4:7] += col_h[..., hr, 3:6]
 
     cx_term = 2.0 * cp.q_goal * (xs[:, n] - problem.target)
     cxx_term = torch.diag(2.0 * cp.q_goal).expand(cx_term.shape[:-1] + (STATE_DIM, STATE_DIM))
@@ -193,14 +195,18 @@ def _linearize(problem: MPCProblem, xs, us, sp: SolverParams):
     return cx, cxx, lu, luu
 
 
-def _backward(us, Ad, Bd, cx, cxx, lu, luu, reg, sp: SolverParams, hp: SolverHyper):
-    """Backward Riccati sweep with per-stage box QPs over the batch.
+def riccati_backward_plain(Ad, Bd, luu, u_lower, u_upper, cx, cxx, lu, us, reg, bq_iters: int = 4):
+    """Backward Riccati sweep with per-stage box QPs over the batch: the
+    plain twin of the sweep kernel (``solver/backward_cuda.py``), with the
+    arguments of ``avoid_mpc_tpu``'s ``riccati_backward_batched``.
 
-    The carry (V_x, V_xx) is the value expansion at node k+1 without that
-    node's state cost, which each stage adds first.  Levenberg reg: reg I
-    through B damps the value curvature, and a direct reg I on Quu keeps the
-    QP positive definite.  Returns (kff (B,N,4), K (B,N,4,10), dV1 (B,),
-    dV2 (B,), projected-gradient sup-norm (B,))."""
+    Ad (10,10), Bd (10,4), luu (4,4), u_lower / u_upper (4,), cx (B,N,10),
+    cxx (B,N,10,10), lu (B,N,4), us (B,N,4), reg (B,).  The carry
+    (V_x, V_xx) is the value expansion at node k+1 without that node's state
+    cost, which each stage adds first.  Levenberg reg: reg I through B damps
+    the value curvature, and a direct reg I on Quu keeps the QP positive
+    definite.  Returns (kff (B,N,4), K (B,N,4,10), dV1 (B,), dV2 (B,),
+    projected-gradient sup-norm (B,))."""
     b, n, nu = us.shape
     nx = cx.shape[-1]
     dtype = us.dtype
@@ -226,10 +232,7 @@ def _backward(us, Ad, Bd, cx, cxx, lu, luu, reg, sp: SolverParams, hp: SolverHyp
         Quu = luu + BtW @ Bd + reg3 * eye_u
         Quu = 0.5 * (Quu + Quu.transpose(-1, -2))
 
-        k_ff, free = boxqp(
-            Quu, Qu, sp.u_lower - u_k, sp.u_upper - u_k, torch.zeros_like(u_k),
-            iters=hp.boxqp_iters,
-        )
+        k_ff, free = boxqp(Quu, Qu, u_lower - u_k, u_upper - u_k, torch.zeros_like(u_k), iters=bq_iters)
         mf = free.to(dtype)
         K = -solve4_mat(masked_newton_matrix(Quu, mf), Qux * mf[..., :, None])
 
@@ -261,13 +264,13 @@ def _rollout_lti(x0, us, Ad, Bd, cvec):
     return torch.stack(xs, dim=1)
 
 
-def _closed_loop_rollout(x0, us, xs_ref, k_ff, K, alpha, sp: SolverParams, Ad, Bd, cvec):
+def _closed_loop_rollout(x0, us, xs_ref, k_ff, K, alpha, u_lower, u_upper, Ad, Bd, cvec):
     """Forward pass with feedback: u = clip(u_k + a k_k + K_k (x - x_k))."""
     x = x0
     xs, us_new = [x0], []
     for k in range(us.shape[1]):
         u = us[:, k] + alpha * k_ff[:, k] + torch.einsum("bij,bj->bi", K[:, k], x - xs_ref[:, k])
-        u = torch.clamp(u, sp.u_lower, sp.u_upper)
+        u = torch.clamp(u, u_lower, u_upper)
         x = _lti_step(x, u, Ad, Bd, cvec)
         xs.append(x)
         us_new.append(u)
@@ -278,55 +281,78 @@ def _total_cost(problem: MPCProblem, xs, us, cp: CostParams):
     return trajectory_cost(xs, us, problem.ref, problem.obstacles, problem.target, cp)
 
 
-def _line_search(problem, us, xs, k_ff, K, dV1, dV2, cost, sp, hp, Ad, Bd, cvec):
-    """Armijo line search over the alphas 2^-i, i = 0..A-1.
+def line_search_plain(
+    Ad, Bd, cvec, u_lower, u_upper, q_goal, q_path, q_u, lam, radius,
+    x0, us, xs_ref, kff, K, ref, obstacles, target, dV1, dV2, cost_old,
+    n_alphas: int = 8, lam_omni=0.0, margin_v=0.0, u_hover=None,
+):
+    """Armijo line search over the alphas 2^-i, i = 0..A-1: the plain twin
+    of the line-search kernel (``solver/forward_cuda.py``), with the
+    arguments of ``avoid_mpc_tpu``'s ``line_search_batched`` plus the
+    control cost's reference ``u_hover`` (default [0, 0, 9.81, 0]).
 
-    A candidate is acceptable when its improvement exceeds 1e-4 of the
-    predicted decrease max(-(a dV1 + a^2 dV2), 0); of the acceptable ones
-    the cheapest wins, ties to the larger alpha (strict < in alpha order).
-    Returns (us, xs, cost, any_ok) with the incumbent kept where none is
-    acceptable."""
-    best_cost = torch.full_like(cost, float("inf"))
-    best_us, best_xs = us, xs
-    any_ok = torch.zeros_like(cost, dtype=torch.bool)
-    for i in range(hp.n_alphas):
+    x0 (B,10), us (B,N,4), xs_ref (B,N+1,10), kff (B,N,4), K (B,N,4,10),
+    ref (B,N,10), obstacles (B,N,K,3), target (B,10), dV1 / dV2 / cost_old
+    (B,).  Each candidate is the closed-loop rollout
+    u = clip(u_k + a kff_k + K_k (x - x_k)); it is acceptable when its
+    improvement exceeds 1e-4 of the predicted decrease
+    max(-(a dV1 + a^2 dV2), 0); of the acceptable ones the cheapest wins,
+    ties to the larger alpha (strict < in alpha order).  Returns (us, xs,
+    cost, any_ok) with the incumbent kept where none is acceptable."""
+    if u_hover is None:
+        u_hover = torch.zeros(CONTROL_DIM, dtype=us.dtype, device=us.device)
+        u_hover[2] = GRAVITY
+    cp = CostParams(q_goal=q_goal, q_path=q_path, q_u=q_u, collide_lambda=lam, drone_radius=radius,
+                    u_hover=u_hover, lam_omni=lam_omni, margin_v=margin_v)
+    best_cost = torch.full_like(cost_old, float("inf"))
+    best_us, best_xs = us, xs_ref
+    any_ok = torch.zeros_like(cost_old, dtype=torch.bool)
+    for i in range(n_alphas):
         alpha = 2.0**-i
-        xs_a, us_a = _closed_loop_rollout(problem.x0, us, xs, k_ff, K, alpha, sp, Ad, Bd, cvec)
-        c = _total_cost(problem, xs_a, us_a, sp.cost)
+        xs_a, us_a = _closed_loop_rollout(x0, us, xs_ref, kff, K, alpha, u_lower, u_upper, Ad, Bd, cvec)
+        c = trajectory_cost(xs_a, us_a, ref, obstacles, target, cp)
         expected = alpha * dV1 + (alpha * alpha) * dV2
-        ok = (cost - c) > 1e-4 * torch.clamp_min(-expected, 0.0)
+        ok = (cost_old - c) > 1e-4 * torch.clamp_min(-expected, 0.0)
         take = ok & (c < best_cost)
         best_cost = torch.where(take, c, best_cost)
         best_us = torch.where(take[:, None, None], us_a, best_us)
         best_xs = torch.where(take[:, None, None], xs_a, best_xs)
         any_ok = any_ok | ok
-    return best_us, best_xs, torch.where(any_ok, best_cost, cost), any_ok
+    return best_us, best_xs, torch.where(any_ok, best_cost, cost_old), any_ok
 
 
-def solve_plain(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper = SolverHyper()):
-    """The batched solve in plain PyTorch, on any device and dtype.
-
-    Runs the XLA ``solve`` schedule: ``iters`` updates, then the certificate
-    pass; ``grad_tol`` is only reported.  This is the plain twin of the
-    fused CUDA kernel, which runs the same steps per scenario but stops a
-    scenario's updates after the iteration whose sweep certified it."""
+def _solve_loop(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper, backward, line_search):
+    """The XLA ``solve`` schedule over the batch, with the sweep and the
+    line search passed in (their plain twins or their kernel wrappers):
+    the initial LTI rollout and its cost, then ``iters + 1`` passes of
+    linearize + sweep, the first ``iters`` followed by the line search and
+    the reg update.  No early exit and no host synchronisation."""
     if sp.dyn.use_drag:
         raise NotImplementedError("the drag (nonlinear dynamics) solve path is not ported yet")
     dtype = us_init.dtype
+    cp = sp.cost
     Ad, Bd, cvec = _affine_dynamics(sp, dtype)
     us = torch.clamp(us_init, sp.u_lower, sp.u_upper)
     xs = _rollout_lti(problems.x0, us, Ad, Bd, cvec)
-    cost = _total_cost(problems, xs, us, sp.cost)
+    cost = _total_cost(problems, xs, us, cp)
     reg = torch.full_like(cost, hp.reg_init)
     pg = torch.full_like(cost, float("inf"))
     for i in range(hp.iters + 1):
         cx, cxx, lu, luu = _linearize(problems, xs, us, sp)
-        k_ff, K, dV1, dV2, pg = _backward(us, Ad, Bd, cx, cxx, lu, luu, reg, sp, hp)
+        k_ff, K, dV1, dV2, pg = backward(Ad, Bd, luu, sp.u_lower, sp.u_upper, cx, cxx, lu, us, reg, hp.boxqp_iters)
         if i == hp.iters:  # certificate pass: no update
             break
-        us, xs, cost, any_ok = _line_search(
-            problems, us, xs, k_ff, K, dV1, dV2, cost, sp, hp, Ad, Bd, cvec
+        us_new, xs_new, cost, any_ok = line_search(
+            Ad, Bd, cvec, sp.u_lower, sp.u_upper, cp.q_goal, cp.q_path, cp.q_u, cp.collide_lambda,
+            cp.drone_radius, problems.x0, us, xs, k_ff, K, problems.ref, problems.obstacles,
+            problems.target, dV1, dV2, cost, n_alphas=hp.n_alphas, lam_omni=cp.lam_omni,
+            margin_v=cp.margin_v, u_hover=cp.u_hover,
         )
+        # keep the incumbent where nothing was accepted (the line-search
+        # kernel, as the TPU one, returns its alpha = 0 rollout there)
+        keep = any_ok[:, None, None]
+        us = torch.where(keep, us_new, us)
+        xs = torch.where(keep, xs_new, xs)
         reg = torch.where(
             any_ok,
             torch.clamp_min(reg * 0.2, hp.reg_min),
@@ -338,15 +364,38 @@ def solve_plain(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper
     )
 
 
+def solve_plain(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper = SolverHyper()):
+    """The batched solve in plain PyTorch, on any device and dtype.
+
+    Runs the XLA ``solve`` schedule: ``iters`` updates, then the certificate
+    pass; ``grad_tol`` is only reported.  This is the plain twin of the
+    fused CUDA kernel, which runs the same steps per scenario but stops a
+    scenario's updates after the iteration whose sweep certified it."""
+    return _solve_loop(problems, us_init, sp, hp, riccati_backward_plain, line_search_plain)
+
+
+def solve_phased(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper = SolverHyper()):
+    """The per-phase batched solve (``SolverHyper.fuse=False``): the loop of
+    :func:`solve_plain` with the sweep and the line search going through
+    their kernel wrappers, 2 iters + 1 launches per solve.  CUDA float32
+    launches the kernels, CPU runs their plain twins (and so equals
+    :func:`solve_plain`), anything else raises."""
+    from avoid_mpc_torch.solver.backward_cuda import riccati_backward  # imports this module
+    from avoid_mpc_torch.solver.forward_cuda import line_search
+
+    return _solve_loop(problems, us_init, sp, hp, riccati_backward, line_search)
+
+
 def solve_batched(
     problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper = SolverHyper()
 ) -> SolveResult:
     """Batch of independent MPC solves; every field of ``problems`` and
-    ``us_init`` carries a leading scenario axis.  Runs through
-    ``solver/sqp_cuda.sqp_solve``: CUDA float32 launches the fused kernel,
-    CPU runs :func:`solve_plain`, anything else raises."""
-    if us_init.is_cuda and not hp.fuse:
-        raise NotImplementedError("the per-phase CUDA kernels (fuse=False) are not ported yet")
+    ``us_init`` carries a leading scenario axis.  ``hp.fuse`` (default)
+    runs through ``solver/sqp_cuda.sqp_solve`` (CUDA float32 launches the
+    fused kernel, CPU runs :func:`solve_plain`); ``fuse=False`` runs
+    :func:`solve_phased`.  Anything else than CUDA float32 or CPU raises."""
+    if not hp.fuse:
+        return solve_phased(problems, us_init, sp, hp)
     from avoid_mpc_torch.solver.sqp_cuda import sqp_solve  # imports this module
 
     return sqp_solve(problems, us_init, sp, hp)

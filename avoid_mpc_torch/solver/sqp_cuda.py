@@ -39,7 +39,7 @@ from avoid_mpc_torch.solver.ilqr import (
     solve_plain,
 )
 
-N_CONSTS = NX * NX + NX * NU + NX + 2 * NU + 2 * NX + 2 * NU + 4  # struct SqpConsts
+N_CONSTS = NX * NX + NX * NU + NX + 2 * NU + 2 * NX + 2 * NU + 4  # struct MpcConsts, csrc/mpc_cost.cuh
 _fn = None
 
 

@@ -9,8 +9,9 @@ warm-started box-iLQR solve, batched (counterpart of
 
 Chained ticks feed ``us`` back as the warm start and ``ref_next`` (the
 predicted nodes) as the next reference.  On CUDA float32 both halves run
-their kernels (``ops/knn_cuda.py``, ``solver/sqp_cuda.py``); on the CPU
-their plain twins.
+their kernels (``ops/knn_cuda.py``, then ``solver/sqp_cuda.py``, or with
+``flagship_params(..., fuse=False)`` the per-phase ``solver/backward_cuda.py``
+and ``solver/forward_cuda.py``); on the CPU their plain twins.
 """
 
 from __future__ import annotations
@@ -55,10 +56,13 @@ def build_problem_batch(b: int, n: int, n_pts: int, generator: torch.Generator,
     return tuple(t.to(dev) for t in (x0, ref, target, pts, mask))
 
 
-def flagship_params(device="cuda", dtype=torch.float32):
+def flagship_params(device="cuda", dtype=torch.float32, fuse: bool = True):
     """(SolverParams, SolverHyper) of the flagship step: N=20, 10 iterations,
-    8 alphas, 4 box-QP iterations, exit at grad_tol 1e-4."""
-    return SolverParams.from_config(FLAGSHIP, dtype=dtype, device=device), SolverHyper.from_config(FLAGSHIP)
+    8 alphas, 4 box-QP iterations, exit at grad_tol 1e-4.  ``fuse=False``
+    selects the per-phase solve (the sweep and line-search kernels per
+    iteration) in place of the fused kernel."""
+    sp = SolverParams.from_config(FLAGSHIP, dtype=dtype, device=device)
+    return sp, SolverHyper.from_config(FLAGSHIP)._replace(fuse=fuse)
 
 
 def solve_step(x0, ref, target, pts, mask, us_warm, sp: SolverParams | None = None,

@@ -81,7 +81,9 @@ def compare(us, cost, converged, gold) -> dict:
     return out
 
 
-def run(device: str = "cuda") -> dict:
+def run(device: str = "cuda", fuse: bool = True) -> dict:
+    """The gate on the golden's 256 scenarios; ``fuse=False`` runs the
+    per-phase solve instead of the fused one."""
     import torch
 
     from avoid_mpc_torch.config import MPCConfig
@@ -91,7 +93,7 @@ def run(device: str = "cuda") -> dict:
     x0, ref, obs, tgt, us0 = build_problems(256, cfg.horizon_steps)
     sp = SolverParams.from_config(cfg, dtype=torch.float32, device=device)
     problem = MPCProblem(*(torch.as_tensor(a, device=device) for a in (x0, ref, obs, tgt)))
-    res = solve_batched(problem, torch.as_tensor(us0, device=device), sp, SolverHyper())
+    res = solve_batched(problem, torch.as_tensor(us0, device=device), sp, SolverHyper(fuse=fuse))
     return compare(res.us.cpu(), res.cost.cpu(), res.converged.cpu(), np.load(GOLDEN))
 
 
