@@ -111,3 +111,43 @@ __device__ float interior_cost(const float x[NX], const float* refk, const float
   }
   return c;
 }
+
+// The alpha-invariant part of interior_cost for ref slot k: cos / sin of
+// the reference yaw and the speed-scaled radius, in trig[0..2].  With
+// interior_cost_pre below it computes what interior_cost does.
+__device__ __forceinline__ void interior_invariants(const float* refk, float* trig) {
+  trig[0] = cosf(refk[3]);
+  trig[1] = sinf(refk[3]);
+  const float rv2 = refk[4] * refk[4] + refk[5] * refk[5] + refk[6] * refk[6];
+  trig[2] = C.radius + C.margin_v * sqrtf(rv2);
+}
+
+// interior_cost with its alpha-invariant terms (interior_invariants) given.
+template <class Softplus>
+__device__ __forceinline__ float interior_cost_pre(const float x[NX], const float* refk,
+                                                   const float* trig, const float* obsk,
+                                                   int n_obs) {
+  const float cy = trig[0];
+  const float sy = trig[1];
+  float d[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) d[i] = x[i] - refk[i];
+  const float rot[NX] = {d[0] * cy + d[1] * sy, -d[0] * sy + d[1] * cy, d[2], d[3],
+                         d[4] * cy + d[5] * sy, -d[4] * sy + d[5] * cy, d[6], d[7], d[8], d[9]};
+  float c = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NX; ++i) c += C.qpath[i] * rot[i] * rot[i];
+  const float r_eff = trig[2];
+  for (int o = 0; o < n_obs; ++o) {
+    const float* ob = obsk + o * 3;
+    const float vx = ob[0] - x[0];
+    const float vy = ob[1] - x[1];
+    const float vz = ob[2] - x[2];
+    const float d2 = fmaxf(vx * vx + vy * vy + vz * vz, 1e-12f);
+    const float dist = sqrtf(d2);
+    const float v_along = (x[4] * vx + x[5] * vy + x[6] * vz) / dist;
+    const float v_toward = sqrtf(v_along * v_along + 1e-8f);
+    c += (C.lam * v_toward + C.lam_omni) * Softplus::f(-32.0f * (dist - r_eff));
+  }
+  return c;
+}

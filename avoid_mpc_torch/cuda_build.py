@@ -23,6 +23,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -33,6 +34,17 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+class LaunchGeometry(NamedTuple):
+    """A kernel launch as its wrapper computes it and its C launcher checks
+    it (``solver/backward_cuda.py``, ``solver/forward_cuda.py``)."""
+
+    grid: int  # blocks
+    threads: int  # threads per block
+    scenarios_per_block: int
+    lanes_per_scenario: int
+    shared_bytes: int  # dynamic shared memory per block
 
 
 def _nvcc() -> str:

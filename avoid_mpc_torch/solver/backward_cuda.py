@@ -18,9 +18,15 @@ twin's ``solve4_mat`` round differently, so the two agree to the JAX test's
 tolerances (kff 2e-4, K 2e-3, dV1 / dV2 / pg 1e-3), not bit for bit.
 
 Bound on the H100: bytes (~53 MB per launch at B=4096, N=20, ~16 us at
-3.35 TB/s, against ~0.82 GFLOP, ~12 us at 67 TFLOP/s f32).  The kernel runs
-one scenario per thread, one warp per SM at B=4096, with the per-stage
-10x10 blocks in per-thread arrays: simple first, as ``csrc/sqp.cu``.
+3.35 TB/s, against ~0.82 GFLOP, ~12 us at 67 TFLOP/s f32).  The kernel
+gives each scenario a group of 16 lanes, 8 scenarios to a block
+(:func:`launch_geometry`): lane r < 10 owns row r of the stage's 10x10
+blocks, lanes 10..13 the control rows, and the rows meet in small
+per-scenario tiles in shared memory.  The block's first warp runs the 8
+box QPs, one lane per scenario, and hands kff, the mask and the masked
+inverse back through shared memory.  Each stage's cx / cxx / lu / us are
+fetched with ``cp.async`` while the stage before computes, and kff / K
+leave in contiguous runs of the group's lanes.
 """
 
 from __future__ import annotations
@@ -30,19 +36,48 @@ import ctypes
 import torch
 
 from avoid_mpc_torch import cuda_build
+from avoid_mpc_torch.cuda_build import LaunchGeometry
 from avoid_mpc_torch.config import CONTROL_DIM as NU
 from avoid_mpc_torch.config import STATE_DIM as NX
 from avoid_mpc_torch.solver.ilqr import riccati_backward_plain
 
 N_CONSTS = NX * NX + NX * NU + NU * NU + 2 * NU  # struct BwConsts
+LANES = 16  # lanes per scenario (BW_LANES in csrc/backward.cu)
+SCENARIOS_PER_BLOCK = 8  # BW_SCEN: lanes 0..7 of warp 0 run their box QPs, one lane each
+_CONST_SLOT = 168  # floats: N_CONSTS rounded up to 8
+
+
+def _tile(n: int) -> int:  # every tile starts on a 16-byte boundary
+    return (n + 3) // 4 * 4
+
+
+_STAGE = NX + NX * NX + 2 * NU  # cx, cxx, lu, us of one stage
+# per scenario: two stage buffers, the Wxx and Vxx tiles, Wx, Qu, Qux, Q0,
+# K^T, Quu, the masked inverse, the mask, kff and Quu kff + Qu
+_USED = sum(_tile(n) for n in (_STAGE, _STAGE, NX * NX, NX * NX, NX, NU, NU * NX, NU * NU, NX * NU, NU * NU, NU * NU,
+                               NU, NU, NU))
+_PER = (_USED + 7) // 8 * 8 + 4
 _fn = None
+
+
+def launch_geometry(b: int, n: int) -> LaunchGeometry:
+    """The sweep kernel's launch for B scenarios and horizon N, as
+    ``csrc/backward.cu`` lays out its shared memory (the constants, then per
+    scenario a double buffer of one stage's inputs and the stage's tiles,
+    at a stride of 4 mod 8 floats).  The shared memory does not grow with
+    N.  The C launcher checks these numbers against its own; raises
+    ``ValueError`` for a shape the kernel cannot take."""
+    if b < 1 or n < 1:
+        raise ValueError(f"riccati_backward: want B >= 1 and N >= 1; got {b}, {n}")
+    spb = SCENARIOS_PER_BLOCK
+    return LaunchGeometry((b + spb - 1) // spb, spb * LANES, spb, LANES, (_CONST_SLOT + spb * _PER) * 4)
 
 
 def _launcher():
     global _fn
     if _fn is None:
         fn = cuda_build.load("backward").riccati_backward_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -64,6 +99,9 @@ def riccati_backward(Ad, Bd, luu, u_lower, u_upper, cx, cxx, lu, us, reg, bq_ite
         raise TypeError("riccati_backward: the CUDA kernel takes float32")
     if not all(t.is_contiguous() for t in per):
         raise ValueError("riccati_backward: cx, cxx, lu, us and reg must be contiguous")
+    if any(t.data_ptr() % 16 for t in (cxx, lu, us)) or cx.data_ptr() % 8:
+        raise ValueError("riccati_backward: the kernel copies cxx, lu and us in 16-byte and cx in 8-byte pieces; "
+                         "their storage must start on such a boundary")
     b, n, nx = cx.shape
     if (nx != NX or tuple(cxx.shape) != (b, n, NX, NX) or tuple(lu.shape) != (b, n, NU)
             or tuple(us.shape) != (b, n, NU) or tuple(reg.shape) != (b,)
@@ -80,9 +118,10 @@ def riccati_backward(Ad, Bd, luu, u_lower, u_upper, cx, cxx, lu, us, reg, bq_ite
     K = torch.empty((b, n, NU, NX), dtype=torch.float32, device=dev)
     dv = torch.empty((3, b), dtype=torch.float32, device=dev)  # dV1, dV2, pg
     if b > 0:
+        geo = launch_geometry(b, n)
         err = _launcher()(
             consts.data_ptr(), consts.numel(), cx.data_ptr(), cxx.data_ptr(), lu.data_ptr(), us.data_ptr(),
-            reg.data_ptr(), kff.data_ptr(), K.data_ptr(), dv.data_ptr(), b, n, bq_iters,
+            reg.data_ptr(), kff.data_ptr(), K.data_ptr(), dv.data_ptr(), b, n, bq_iters, *geo,
             dev.index if dev.index is not None else torch.cuda.current_device(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -96,9 +135,11 @@ riccati_backward.launches = 0
 
 
 def flop_count(b: int, n: int, bq_iters: int) -> int:
-    """Operations of one sweep, counted from ``csrc/backward.cu``'s loops:
+    """Operations one sweep needs, counted for one scenario's stage once:
     every add, multiply, compare/select, divide and square root counts one,
-    a fused multiply-add two."""
+    a fused multiply-add two; symmetric blocks by their upper triangle.
+    ``csrc/backward.cu`` does more than this (full rows of Qxx and Vxx, and
+    Vxx symmetrized); the count is the work the sweep needs."""
     dot10 = 2 * NX - 1  # a 10-term dot product
     pre_qp = (
         NX + NX * NX  # Wx, Wxx

@@ -20,9 +20,15 @@ without a relayout.  Unlike the TPU kernel, which hard-codes gravity, the
 control cost's reference is ``u_hover`` (equal at GRAVITY = 9.81).
 
 Bound on the H100: bytes (~30.4 MB per launch at B=4096, N=20, K=3, ~9 us
-at 3.35 TB/s, against ~0.40 GFLOP).  The kernel runs one scenario per
-thread: the A candidate rollouts keep only their costs, and one more
-rollout at the chosen alpha stores the trajectory, as the TPU kernel does.
+at 3.35 TB/s, against ~0.39 GFLOP).  The kernel gives each scenario a group
+of 8 lanes, one lane per alpha (lane j takes alphas j, j + 8, ...), four
+scenarios to a one-warp block (:func:`launch_geometry`).  The block stages
+its scenarios' inputs into shared memory once with coalesced loads, so the
+candidates read no device memory, and computes the alpha-invariant yaw
+cos / sin and r_eff once per stage; the group picks the winner by a
+shuffle reduction, and its lane 0 re-runs the winner's closed loop
+(without the cost) into shared memory, so the stored trajectory is bit for
+bit the winning candidate's and leaves the block in coalesced stores.
 """
 
 from __future__ import annotations
@@ -32,20 +38,47 @@ import ctypes
 import torch
 
 from avoid_mpc_torch import cuda_build
+from avoid_mpc_torch.cuda_build import LaunchGeometry
 from avoid_mpc_torch.config import CONTROL_DIM as NU
 from avoid_mpc_torch.config import GRAVITY
 from avoid_mpc_torch.config import STATE_DIM as NX
 from avoid_mpc_torch.solver.ilqr import line_search_plain
 
 N_CONSTS = NX * NX + NX * NU + NX + 2 * NU + 2 * NX + 2 * NU + 4  # struct MpcConsts, csrc/mpc_cost.cuh
+LANES = 8  # lanes per scenario (LS_LANES in csrc/forward.cu)
+SCENARIOS_PER_BLOCK = 4  # LS_SCEN: one warp per block
+MAX_SHARED_BYTES = 232_448  # dynamic shared memory one H100 block may use
 _fn = None
+
+
+def launch_geometry(b: int, n: int, n_obs: int, n_alphas: int) -> LaunchGeometry:
+    """The line-search kernel's launch for B scenarios, horizon N, K
+    obstacles per node and A alphas: ``csrc/forward.cu``'s ``ls_layout``
+    (every input slot of a scenario, the output slots over the ref /
+    obstacle slots, a stride of 4 mod 8 floats) times the block's
+    scenarios.  The C launcher checks these numbers against its own.
+    Raises ``ValueError`` for a shape the kernel cannot take, for example a
+    horizon whose staging exceeds the 232,448 bytes a block may use."""
+    if b < 1 or n < 1 or n_obs < 0 or n_alphas < 1:
+        raise ValueError(f"line_search: want B, N, n_alphas >= 1 and K >= 0; got {b}, {n}, {n_alphas}, {n_obs}")
+    m = n - 1
+    inputs = n * NU * NX + 2 * n * NU + n * NX + 2 * NX  # K, kff, us, xs nodes 0..N-1, x0, target
+    ref_slots = m * NX + m * n_obs * 3 + 3 * m  # ref, obstacles, yaw cos / sin and r_eff
+    out_slots = n * NU + (n + 1) * NX  # us_out, xs_out
+    per = (inputs + max(ref_slots, out_slots) + 7) // 8 * 8 + 4
+    shared = SCENARIOS_PER_BLOCK * per * 4
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(f"line_search: N={n}, K={n_obs} stages {shared} B of shared memory per block, "
+                         f"more than {MAX_SHARED_BYTES}")
+    spb = SCENARIOS_PER_BLOCK
+    return LaunchGeometry((b + spb - 1) // spb, spb * LANES, spb, LANES, shared)
 
 
 def _launcher():
     global _fn
     if _fn is None:
         fn = cuda_build.load("forward").line_search_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -105,11 +138,12 @@ def line_search(
     cost_out = torch.empty((b,), dtype=torch.float32, device=dev)
     any_ok = torch.empty((b,), dtype=torch.bool, device=dev)
     if b > 0:
+        geo = launch_geometry(b, n, k_obs, n_alphas)
         err = _launcher()(
             consts.data_ptr(), consts.numel(), x0.data_ptr(), us.data_ptr(), xs_ref.data_ptr(), kff.data_ptr(),
             K.data_ptr(), ref.data_ptr(), obstacles.data_ptr(), target.data_ptr(), dV1.data_ptr(), dV2.data_ptr(),
             cost_old.data_ptr(), us_out.data_ptr(), xs_out.data_ptr(), cost_out.data_ptr(), any_ok.data_ptr(),
-            b, n, k_obs, n_alphas, dev.index if dev.index is not None else torch.cuda.current_device(),
+            b, n, k_obs, n_alphas, *geo, dev.index if dev.index is not None else torch.cuda.current_device(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
         if err != 0:
@@ -124,15 +158,19 @@ line_search.launches = 0
 def flop_count(b: int, n: int, n_obs: int, n_alphas: int) -> int:
     """Operations of one launch, counted from ``csrc/forward.cu``'s loops as
     ``solver/sqp_cuda.py::flop_count`` counts the fused kernel's rollouts:
-    n_alphas candidate rollouts with their objective, the acceptance test,
-    and one more rollout at the chosen alpha."""
+    the alpha-invariant terms of each interior node once (yaw cos / sin and
+    r_eff), n_alphas candidate rollouts with their objective and acceptance
+    test, and the chosen alpha's closed loop once more without its
+    objective."""
     lti = NX * (NX + NU) * 2
     ctrl = 4 * NU
     term = 4 * NX
-    interior = 62 + 30 * n_obs
+    invariants = 10  # cos, sin, |v_ref|^2, sqrt, radius + margin * speed
+    interior = 52 + 30 * n_obs
     ls_stage = 2 * NU + NX * (1 + 2 * NU) + 2 * NU  # u = clip(u + a kff + K dx)
-    rollout = n * (lti + ctrl + ls_stage) + (n - 1) * interior + term
-    return b * ((n_alphas + 1) * rollout + n_alphas * 8)
+    candidate = n * (lti + ctrl + ls_stage) + (n - 1) * interior + term
+    store = n * (lti + ls_stage)
+    return b * (n_alphas * (candidate + 8) + (n - 1) * invariants + store)
 
 
 def byte_count(b: int, n: int, n_obs: int) -> int:

@@ -31,7 +31,10 @@ ticks, once with the fused solve and once with the per-phase solve
    whole K row; the count is printed), all finite;
 7. line-search kernel vs plain on the same iterates (gains from the plain
    sweep): us / xs / cost within 2e-4 and any_ok equal on >= 99.9% of
-   scenarios;
+   scenarios; then both kernels at the edge shapes (``EDGE_CASES``: B=1,
+   B=4097 with a ragged last block, N=30, 1 and 4 obstacles per node, 1
+   and 12 alphas, tight bounds with most controls clamped; a third of the
+   line-search scenarios accept no alpha) at the same tolerances;
 8. the per-phase solve vs ``solve_plain`` (phase 3's results): (a) iters=3,
    grad_tol=0: max|dus| <= 1e-3, rel dcost <= 1e-4; (b) iters=10: max|dus|
    <= 1e-3 on the both-converged scenarios, converged fractions within
@@ -96,28 +99,48 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_events(fn, reps: int = 1):
+PROFILE_TRIES = 4  # a profiler session can come back without device records; it is repeated
+_profiler_warm = False
+
+
+def _device_events(fn, reps: int = 1, want=bool):
     """The device-side events (kernels, copies) of ``reps`` calls of
-    ``fn``, aggregated by name, from ``torch.profiler``."""
+    ``fn``, aggregated by name, from ``torch.profiler``.  The session is
+    repeated, up to PROFILE_TRIES times, until ``want(events)`` holds; the
+    last session's events are returned either way.  The process's first
+    session is a throwaway one, as CUPTI's start-up can lose its records."""
+    global _profiler_warm
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    if not _profiler_warm:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            torch.ones(1024, device="cuda").sum()
+            torch.cuda.synchronize()
+        _profiler_warm = True
+    for attempt in range(1, PROFILE_TRIES + 1):
         torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+        if want(evs):
+            break
+        print(f"  note: profiler session {attempt} of {PROFILE_TRIES} lacked the records it was run for", flush=True)
+    return evs
 
 
-def device_busy(fn) -> tuple[float, int]:
+def device_busy(fn, reps: int = 3) -> tuple[float, int, float]:
     """(ms the device is busy with the kernels and copies of one call of
-    ``fn``, number of host-to-device copies among them)."""
-    evs = _device_events(fn)
-    return (sum(e.self_device_time_total for e in evs) / 1e3,
-            sum(e.count for e in evs if e.key.startswith("Memcpy HtoD")))
+    ``fn``, number of host-to-device copies among them, ms of those copies),
+    each the mean over ``reps`` calls."""
+    evs = _device_events(fn, reps)
+    htod = [e for e in evs if e.key.startswith("Memcpy HtoD")]
+    return (sum(e.self_device_time_total for e in evs) / 1e3 / reps, sum(e.count for e in htod) // reps,
+            sum(e.self_device_time_total for e in htod) / 1e3 / reps)
 
 
 def kernel_ms(fn, kernel: str, reps: int) -> float:
@@ -126,12 +149,19 @@ def kernel_ms(fn, kernel: str, reps: int) -> float:
     kernel records: the kernel alone, without the host work of its wrapper
     or the gaps between launches that CUDA events around the calls see.
     (The profiler may miss a record of a short kernel, so the mean is over
-    the records it kept.)"""
+    the records it kept.)  Where no session of PROFILE_TRIES keeps one,
+    the time is the CUDA events' mean over back-to-back calls, an upper
+    bound that includes the wrapper's host work, and a line says so."""
     fn()
-    evs = [e for e in _device_events(fn, reps) if kernel in e.key]
+    evs = _device_events(fn, reps, want=lambda evs: any(kernel in e.key for e in evs))
+    evs = [e for e in evs if kernel in e.key]
     n = sum(e.count for e in evs)
-    check(n > 0, f"the profiler saw no launch of {kernel}")
-    return sum(e.self_device_time_total for e in evs) / max(n, 1) / 1e3
+    if n == 0:
+        ms = cuda_ms(fn, reps)
+        print(f"  note: the profiler kept no record of {kernel} in {PROFILE_TRIES} sessions; its time "
+              f"{ms:.4f} ms is from CUDA events around {reps} back-to-back calls", flush=True)
+        return ms
+    return sum(e.self_device_time_total for e in evs) / n / 1e3
 
 
 def disagree(got, want, tol: float):
@@ -143,6 +173,127 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# Edge shapes of phases 6 and 7: (name, B, N, K obstacles, n_alphas, tight bounds).
+# B=1 and B=4097 leave a ragged last block in both kernels (4 and 8
+# scenarios per block); N=30 is configs/default.yaml's horizon.
+EDGE_CASES = (
+    ("B=1", 1, 20, 3, 8, False),
+    ("B=4097", 4097, 20, 3, 8, False),
+    ("N=30", 4096, 30, 3, 8, False),
+    ("K=1 A=1", 4096, 20, 1, 1, False),
+    ("K=4 A=12", 4096, 20, 4, 12, False),
+    ("tight bounds", 4096, 20, 3, 8, True),
+)
+SWEEP_TOLS = (2e-4, 2e-3, 1e-3, 1e-3, 1e-3)  # kff, K, dV1, dV2, pg
+LS_TOL = 2e-4  # us, xs, cost
+
+
+def sweep_vs_plain(args, label: str):
+    """The sweep kernel against its plain twin on ``args``: kff / K / dV1 /
+    dV2 / pg within SWEEP_TOLS on >= 99.9% of scenarios, all finite.
+    Returns the max abs error and the twin's outputs."""
+    import torch
+
+    from avoid_mpc_torch.solver import ilqr
+    from avoid_mpc_torch.solver.backward_cuda import riccati_backward
+
+    out_k, out_p = riccati_backward(*args), ilqr.riccati_backward_plain(*args)
+    torch.cuda.synchronize()
+    b = out_k[0].shape[0]
+    bad = torch.zeros(b, dtype=torch.bool, device=out_k[0].device)
+    err = 0.0
+    for a, b_, tol in zip(out_k, out_p, SWEEP_TOLS):
+        bad |= disagree(a, b_, tol)
+        err = max(err, float((a - b_).abs().max()))
+    finite = all(bool(torch.isfinite(t).all()) for t in out_k)
+    n_bad = int(bad.sum())
+    check(n_bad <= b // 1000 and finite,
+          f"sweep {label}: {n_bad} scenarios outside tolerance (max {b // 1000}), finite={finite}")
+    print(f"phase 6 sweep kernel vs plain, {label}: {n_bad}/{b} scenarios outside tolerance, max abs err kff "
+          f"{float((out_k[0] - out_p[0]).abs().max()):.3e} K {float((out_k[1] - out_p[1]).abs().max()):.3e} dV1 "
+          f"{float((out_k[2] - out_p[2]).abs().max()):.3e} pg {float((out_k[4] - out_p[4]).abs().max()):.3e}, "
+          f"finite={finite}", flush=True)
+    return err, out_p
+
+
+def line_search_vs_plain(args, kw, label: str) -> float:
+    """The line-search kernel against its plain twin: us / xs / cost within
+    LS_TOL and any_ok equal on >= 99.9% of scenarios, all finite.  Returns
+    the max abs error."""
+    import torch
+
+    from avoid_mpc_torch.solver import ilqr
+    from avoid_mpc_torch.solver.forward_cuda import line_search
+
+    out_k, out_p = line_search(*args, **kw), ilqr.line_search_plain(*args, **kw)
+    torch.cuda.synchronize()
+    b = out_k[0].shape[0]
+    bad = torch.zeros(b, dtype=torch.bool, device=out_k[0].device)
+    err = 0.0
+    for a, b_ in zip(out_k[:3], out_p[:3]):
+        bad |= disagree(a, b_, LS_TOL)
+        err = max(err, float((a - b_).abs().max()))
+    n_bad, n_ok_diff = int(bad.sum()), int((out_k[3] != out_p[3]).sum())
+    finite = all(bool(torch.isfinite(t).all()) for t in out_k[:3])
+    check(n_bad <= b // 1000 and n_ok_diff <= b // 1000 and finite,
+          f"line search {label}: {n_bad} scenarios outside {LS_TOL}, {n_ok_diff} any_ok differ, finite={finite}")
+    print(f"phase 7 line-search kernel vs plain, {label}: {n_bad}/{b} scenarios outside {LS_TOL}, any_ok differs on "
+          f"{n_ok_diff}, accepted {float(out_k[3].float().mean()):.4f}, max abs err us "
+          f"{float((out_k[0] - out_p[0]).abs().max()):.3e} xs {float((out_k[1] - out_p[1]).abs().max()):.3e} cost "
+          f"{float((out_k[2] - out_p[2]).abs().max()):.3e}, finite={finite}", flush=True)
+    return err
+
+
+def edge_shapes(dev, seed: int = 1) -> tuple[float, float]:
+    """Phases 6 and 7 at EDGE_CASES: for each, a problem batch from the
+    flagship's generator (``step.build_problem_batch``) at that B and N
+    with K-NN obstacles, an iterate (the hover start, or with tight bounds
+    the hover start spread 4x and clipped into a box of +-1 about hover, so
+    many controls sit on a bound), the sweep kernel vs plain at reg 1e-6,
+    then the line-search kernel vs plain on the plain sweep's gains, with
+    every third scenario's incumbent cost lowered so that it accepts
+    nothing.  Returns the max abs errors (sweep, line search)."""
+    import torch
+
+    from avoid_mpc_torch import step
+    from avoid_mpc_torch.ops.knn_cuda import knn_topk
+    from avoid_mpc_torch.solver import ilqr
+    from avoid_mpc_torch.solver.ilqr import MPCProblem, hover_warm_start
+
+    sp, hp = step.flagship_params(dev)
+    cp = sp.cost
+    Ad, Bd, cvec = ilqr._affine_dynamics(sp, torch.float32)
+    bw_err = ls_err = 0.0
+    for label, b, n, k_obs, n_alphas, tight in EDGE_CASES:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x0, ref, target, pts, mask = step.build_problem_batch(b, n, N_PTS, gen, dev)
+        _, obstacles = knn_topk(ref[..., 0:3].contiguous(), pts, mask, k_obs)
+        problem = MPCProblem(x0, ref, obstacles, target)
+        us_i = hover_warm_start(n, device=dev, batch=b)
+        lo, hi = sp.u_lower, sp.u_upper
+        if tight:
+            lo, hi = torch.maximum(lo, cp.u_hover - 1.0), torch.minimum(hi, cp.u_hover + 1.0)
+            us_i = us_i + 4.0 * torch.randn(us_i.shape, generator=gen, device=dev)
+        us_i = torch.clamp(us_i, lo, hi)
+        xs_i = ilqr._rollout_lti(x0, us_i, Ad, Bd, cvec)
+        sp_i = sp._replace(u_lower=lo, u_upper=hi)
+        cx, cxx, lu, luu = ilqr._linearize(problem, xs_i, us_i, sp_i)
+        reg = torch.full((b,), 1e-6, device=dev)
+        bw_args = (Ad, Bd, luu, lo, hi, cx, cxx, lu, us_i, reg, hp.boxqp_iters)
+        label = f"{label} (B={b}, N={n}, K={k_obs}, A={n_alphas})"
+        if tight:
+            label += f", {float(((us_i == lo) | (us_i == hi)).float().mean()):.2f} of controls on a bound"
+        err, (kff_i, K_i, dV1_i, dV2_i, _) = sweep_vs_plain(bw_args, f"{label}, reg=1e-6")
+        bw_err = max(bw_err, err)
+        cost_i = ilqr._total_cost(problem, xs_i, us_i, cp)
+        cost_i[1::3] -= 1e3  # these accept no alpha: the kernel's alpha = 0 rollout and cost_old
+        ls_args = (Ad, Bd, cvec, lo, hi, cp.q_goal, cp.q_path, cp.q_u, cp.collide_lambda, cp.drone_radius, x0, us_i,
+                   xs_i, kff_i, K_i, ref, obstacles, target, dV1_i, dV2_i, cost_i)
+        kw = dict(n_alphas=n_alphas, lam_omni=cp.lam_omni, margin_v=cp.margin_v, u_hover=cp.u_hover)
+        ls_err = max(ls_err, line_search_vs_plain(ls_args, kw, label))
+    return bw_err, ls_err
 
 
 def main() -> int:
@@ -188,6 +339,12 @@ def main() -> int:
                             f"{r.get('spill_stores')}/{r.get('spill_loads')} B spill st/ld")
     print(f"phase 1 build: {build_s:.1f} s wall ({', '.join(f'{k} {v:.1f} s' for k, v in built.items()) or 'cached'}); "
           + "; ".join(res_line), flush=True)
+    for mod, geo in (("sweep", backward_cuda.launch_geometry(B, N_HORIZON)),
+                     ("line search", forward_cuda.launch_geometry(B, N_HORIZON, K_NN, 8)),
+                     ("line search N=30", forward_cuda.launch_geometry(B, 30, K_NN, 8))):
+        print(f"phase 1 {mod} launch at B={B}: grid {geo.grid} x {geo.threads} threads ({geo.grid * geo.threads} in "
+              f"flight), {geo.scenarios_per_block} scenarios per block, {geo.lanes_per_scenario} lanes each, "
+              f"{geo.shared_bytes} B dynamic shared memory per block", flush=True)
     print(f"phase 1 device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
 
@@ -330,10 +487,11 @@ def main() -> int:
           f"{sqp_bound:.4f} {sqp_by}: {sqp_ops / 1e9:.3f} GFLOP, mean updates {float(r_k.iterations.float().mean()):.3f}, "
           f"both-converged {int(both.sum())}/{B} max|dus| {du_m:.3e}); tick p50 {p50:.3f} = knn {knn_ms:.3f} + sqp "
           f"{sqp_ms:.3f} + other {other:.3f} ms (host glue, torch ops and idle)", flush=True)
-    fused_busy, fused_htod = device_busy(lambda: step.solve_step(x0, ref_in, target, pts, mask, us_in, sp, hp))
+    fused_busy, fused_htod, fused_htod_ms = device_busy(
+        lambda: step.solve_step(x0, ref_in, target, pts, mask, us_in, sp, hp))
     check(fused_busy > 0, "the profiler saw no device activity in a fused tick")
     print(f"phase 5 profiler: one fused tick keeps the device busy {fused_busy:.3f} ms (idle share vs the p50 tick "
-          f"{1.0 - fused_busy / p50:.3f}), {fused_htod} host-to-device copies", flush=True)
+          f"{1.0 - fused_busy / p50:.3f}), {fused_htod} host-to-device copies ({fused_htod_ms:.3f} ms of it)", flush=True)
 
     # ---- 6. Riccati-sweep kernel vs plain ----
     Ad, Bd, cvec = ilqr._affine_dynamics(sp, torch.float32)
@@ -342,27 +500,15 @@ def main() -> int:
     # scenario is stationary after two, where Armijo decisions are f32 noise)
     r_mid = sqp_solve(problem, us0, sp, hp._replace(iters=1, grad_tol=0.0))
     iterates = {"hover": (us_h, ilqr._rollout_lti(x0, us_h, Ad, Bd, cvec)), "iter1": (r_mid.us, r_mid.xs)}
-    bw_err, bw_tols = 0.0, (2e-4, 2e-3, 1e-3, 1e-3, 1e-3)
+    bw_err = 0.0
     sweeps = {}
     for it_name, (us_i, xs_i) in iterates.items():
         cx, cxx, lu, luu = ilqr._linearize(problem, xs_i, us_i, sp)
         for reg_val in (1e-6, 1.0):
             reg = torch.full((B,), reg_val, device=dev)
             args = (Ad, Bd, luu, lo, hi, cx, cxx, lu, us_i, reg, hp.boxqp_iters)
-            out_k, out_p = riccati_backward(*args), ilqr.riccati_backward_plain(*args)
-            torch.cuda.synchronize()
-            bad = torch.zeros(B, dtype=torch.bool, device=dev)
-            for a, b_, tol in zip(out_k, out_p, bw_tols):
-                bad |= disagree(a, b_, tol)
-                bw_err = max(bw_err, float((a - b_).abs().max()))
-            finite = all(bool(torch.isfinite(t).all()) for t in out_k)
-            n_bad = int(bad.sum())
-            check(n_bad <= B // 1000 and finite,
-                  f"sweep {it_name} reg={reg_val}: {n_bad} scenarios outside tolerance (max {B // 1000}), finite={finite}")
-            print(f"phase 6 sweep kernel vs plain, {it_name} iterate, reg={reg_val}: {n_bad}/{B} scenarios outside "
-                  f"tolerance, max abs err kff {float((out_k[0] - out_p[0]).abs().max()):.3e} K "
-                  f"{float((out_k[1] - out_p[1]).abs().max()):.3e} dV1 {float((out_k[2] - out_p[2]).abs().max()):.3e} "
-                  f"pg {float((out_k[4] - out_p[4]).abs().max()):.3e}, finite={finite}", flush=True)
+            err, out_p = sweep_vs_plain(args, f"{it_name} iterate, reg={reg_val}")
+            bw_err = max(bw_err, err)
             if reg_val == 1e-6:
                 sweeps[it_name] = out_p
 
@@ -375,20 +521,11 @@ def main() -> int:
         args = (Ad, Bd, cvec, lo, hi, cp.q_goal, cp.q_path, cp.q_u, cp.collide_lambda, cp.drone_radius, x0, us_i,
                 xs_i, kff_i, K_i, ref, obstacles, target, dV1_i, dV2_i, cost_i)
         kw = dict(n_alphas=hp.n_alphas, lam_omni=cp.lam_omni, margin_v=cp.margin_v, u_hover=cp.u_hover)
-        out_k, out_p = line_search(*args, **kw), ilqr.line_search_plain(*args, **kw)
-        torch.cuda.synchronize()
-        bad = torch.zeros(B, dtype=torch.bool, device=dev)
-        for a, b_ in zip(out_k[:3], out_p[:3]):
-            bad |= disagree(a, b_, 2e-4)
-            ls_err = max(ls_err, float((a - b_).abs().max()))
-        n_bad, n_ok_diff = int(bad.sum()), int((out_k[3] != out_p[3]).sum())
-        finite = all(bool(torch.isfinite(t).all()) for t in out_k[:3])
-        check(n_bad <= B // 1000 and n_ok_diff <= B // 1000 and finite,
-              f"line search {it_name}: {n_bad} scenarios outside 2e-4, {n_ok_diff} any_ok differ, finite={finite}")
-        print(f"phase 7 line-search kernel vs plain, {it_name} iterate: {n_bad}/{B} scenarios outside 2e-4, any_ok "
-              f"differs on {n_ok_diff}, accepted {float(out_k[3].float().mean()):.4f}, max abs err us "
-              f"{float((out_k[0] - out_p[0]).abs().max()):.3e} xs {float((out_k[1] - out_p[1]).abs().max()):.3e} cost "
-              f"{float((out_k[2] - out_p[2]).abs().max()):.3e}, finite={finite}", flush=True)
+        ls_err = max(ls_err, line_search_vs_plain(args, kw, f"{it_name} iterate"))
+
+    # ---- 6 and 7 at the edge shapes ----
+    edge_bw, edge_ls = edge_shapes(dev)
+    bw_err, ls_err = max(bw_err, edge_bw), max(ls_err, edge_ls)
 
     # ---- 8. the per-phase solve vs solve_plain, and the golden ----
     r_f = ilqr.solve_batched(problem, us0, sp, hp3._replace(fuse=False))
@@ -463,7 +600,8 @@ def main() -> int:
     ls_plain_ms = cuda_ms(lambda: ilqr.line_search_plain(*ls_args, **ls_kw), reps=3)
     knn_f_ms = kernel_ms(lambda: knn_topk(ref_fin[..., 0:3].contiguous(), pts, mask, K_NN), "knn_topk_kernel", reps=20)
     n_bw, n_ls = hp_f.iters + 1, hp_f.iters
-    phased_busy, phased_htod = device_busy(lambda: step.solve_step(x0, ref_fin, target, pts, mask, us_fin, sp_f, hp_f))
+    phased_busy, phased_htod, phased_htod_ms = device_busy(
+        lambda: step.solve_step(x0, ref_fin, target, pts, mask, us_fin, sp_f, hp_f))
     check(phased_busy > 0, "the profiler saw no device activity in a per-phase tick")
     other_dev = phased_busy - knn_f_ms - n_bw * (bw_ms + lin_ms) - n_ls * ls_ms
     bw_bound, bw_by = bound_ms(backward_cuda.byte_count(B, N_HORIZON),
@@ -475,8 +613,9 @@ def main() -> int:
           f"ops {other_dev:.3f} (affine map, rollout, cost, reg update, constants) = busy {phased_busy:.3f} ms, + idle "
           f"{p50_f - phased_busy:.3f} ms (idle share {1.0 - phased_busy / p50_f:.3f}); host: one torch linearization "
           f"takes {lin_host_ms:.3f} ms back to back (CUDA events, its launches), {n_bw} per tick; {phased_htod} "
-          f"host-to-device copies per tick; sweep bound {bw_bound:.4f} ms ({bw_by}), plain {bw_plain_ms:.3f} ms; line "
-          f"search bound {ls_bound:.4f} ms ({ls_by}), plain {ls_plain_ms:.3f} ms", flush=True)
+          f"host-to-device copies per tick ({phased_htod_ms:.3f} ms of the busy time); sweep bound {bw_bound:.4f} ms "
+          f"({bw_by}), plain {bw_plain_ms:.3f} ms; line search bound {ls_bound:.4f} ms ({ls_by}), plain "
+          f"{ls_plain_ms:.3f} ms", flush=True)
 
     # ---- 10. the op microbench ----
     mb_err = 0.0
