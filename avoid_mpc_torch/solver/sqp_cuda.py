@@ -6,19 +6,24 @@ Replaces the TPU kernel ``avoid_mpc_tpu/solver/pallas_sqp.py::sqp_solve_batched`
 Its plain twin is :func:`avoid_mpc_torch.solver.ilqr.solve_plain`; a CPU
 tensor goes there, a CUDA tensor launches the kernel or raises.
 
-The kernel runs one scenario per thread and exits per scenario at
-``grad_tol`` (the iteration that certifies still runs its line search), so
-``SolverHyper.tol_exit`` True and False are the same computation; with
-``grad_tol=0`` it runs the plain solve's fixed schedule.
+The kernel exits per scenario at ``grad_tol`` (the iteration that certifies
+still runs its line search), so ``SolverHyper.tol_exit`` True and False are
+the same computation; with ``grad_tol=0`` it runs the plain solve's fixed
+schedule.
 
-Bound on the H100: operations.  ~3.5 MFLOP per scenario at the flagship's
-10 iterations (~14 GFLOP at B=4096, ~0.2 ms at 67 TFLOP/s f32) against ~3 KB
-of problem data in and trajectory out per scenario.  Design: the stage
-arrays stay in a [field][B] global workspace so a warp's accesses coalesce,
-the constants sit in ``__constant__`` memory, and the 8 line-search alphas
-run one at a time keeping only the best candidate.  One thread per scenario
-leaves one warp per SM at B=4096 and spills the per-stage 10x10 blocks to
-local memory: simple first, the redesign is later work.
+Bound on the H100: operations (~0.55 MFLOP per scenario for a warm-started
+tick's one update, ~2.25 GFLOP at B=4096, ~34 us at 67 TFLOP/s f32, against
+~3 KB of problem data in and trajectory out per scenario).  Design
+(:func:`launch_geometry`): a group of 16 lanes per scenario, four scenarios
+per two-warp block, every per-scenario array but the gains' K^T in shared
+memory for the whole solve, so that the flagship batch fits on the card in
+one wave.  Before each sweep the group linearizes the nodes in parallel (a
+node per lane); in each sweep stage the rows of the 10x10 blocks go across
+lanes and the box QP across quads of lanes, a slot per stage holds first
+the linearization, then kff, and K^T goes to a global workspace that the
+line search reads; in the line search each lane rolls out its own alphas,
+a shuffle picks the winner and one lane commits it in place.  Groups sync
+only their own lanes, so each scenario stops at its own update.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import ctypes
 import torch
 
 from avoid_mpc_torch import cuda_build
+from avoid_mpc_torch.cuda_build import LaunchGeometry
 from avoid_mpc_torch.config import CONTROL_DIM as NU
 from avoid_mpc_torch.config import STATE_DIM as NX
 from avoid_mpc_torch.solver.ilqr import (
@@ -39,8 +45,49 @@ from avoid_mpc_torch.solver.ilqr import (
     solve_plain,
 )
 
+
+def _r4(n: int) -> int:  # every array starts on a 16-byte boundary
+    return (n + 3) // 4 * 4
+
+
 N_CONSTS = NX * NX + NX * NU + NX + 2 * NU + 2 * NX + 2 * NU + 4  # struct MpcConsts, csrc/mpc_cost.cuh
+LANES = 16  # lanes per scenario (SQP_LANES in csrc/sqp.cu)
+SCENARIOS_PER_BLOCK = 4  # SQP_SCEN: two warps per block
+MAX_SHARED_BYTES = 232_448  # dynamic shared memory one H100 block may use
+SLOT = 32  # floats per stage: the linearization, then kff
+COLS = NX * LANES  # SQP_COLS: the block's table of the lanes' Ad / Bd columns
+_FIXED = 2 * NX * NX + _r4(NX) + NU + NU * NX + NU * NU + 2 * _r4(NX)  # O_LIN in csrc/sqp.cu
 _fn = None
+_occupancy = None
+
+
+def shared_floats(n: int, n_obs: int) -> int:
+    """Floats of shared memory per scenario, as ``csrc/sqp.cu::sqp_layout``
+    lays them out: the sweep's tiles (Wxx, Vxx, Wx, Qu, Qux, Q0), x0 and
+    target at fixed offsets (296 floats), then N stage slots, us, xs and
+    the ref / obstacle / invariant slots of the N-1 interior nodes, at a
+    stride of 4 mod 8 floats."""
+    m = n - 1
+    used = _FIXED + n * SLOT + _r4(n * NU) + _r4((n + 1) * NX) + _r4(m * NX) + _r4(m * n_obs * 3) + _r4(3 * m)
+    return (used + 7) // 8 * 8 + 4
+
+
+def launch_geometry(b: int, n: int, n_obs: int, n_alphas: int) -> LaunchGeometry:
+    """The SQP kernel's launch for B scenarios, horizon N, K obstacles per
+    node and A alphas: two-warp blocks of four 16-lane groups, a table of
+    the lanes' Ad / Bd columns, then each scenario's arrays in shared
+    memory (:func:`shared_floats`).  The C
+    launcher checks these numbers against its own.  Raises ``ValueError``
+    for a shape the kernel cannot take, for example a horizon whose arrays
+    exceed the 232,448 bytes a block may use."""
+    if b < 1 or n < 1 or n_obs < 0 or n_alphas < 1:
+        raise ValueError(f"sqp_solve: want B, N, n_alphas >= 1 and K >= 0; got {b}, {n}, {n_alphas}, {n_obs}")
+    spb = SCENARIOS_PER_BLOCK
+    shared = (COLS + spb * shared_floats(n, n_obs)) * 4
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(f"sqp_solve: N={n}, K={n_obs} keeps {shared} B of shared memory per block, "
+                         f"more than {MAX_SHARED_BYTES}")
+    return LaunchGeometry((b + spb - 1) // spb, spb * LANES, spb, LANES, shared)
 
 
 def _launcher():
@@ -48,16 +95,33 @@ def _launcher():
     if _fn is None:
         fn = cuda_build.load("sqp").sqp_solve_launch
         fn.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_longlong]
-            + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+            + [ctypes.c_float] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
+def blocks_per_sm(geo: LaunchGeometry, device: int = 0) -> int:
+    """Blocks of this launch that one SM of the card holds at once: CUDA's
+    occupancy calculator over the built kernel's registers and the launch's
+    shared memory."""
+    global _occupancy
+    if _occupancy is None:
+        fn = cuda_build.load("sqp").sqp_blocks_per_sm
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        _occupancy = fn
+    out = ctypes.c_int(0)
+    err = _occupancy(geo.shared_bytes, device, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"sqp_blocks_per_sm failed with CUDA error {err}")
+    return out.value
+
+
 def pack_constants(sp: SolverParams, Ad, Bd, cvec) -> torch.Tensor:
-    """The kernel's ``SqpConsts`` block as one float32 tensor on sp's device:
+    """The kernel's ``MpcConsts`` block as one float32 tensor on sp's device:
     Ad, Bd, cvec, u_lower, u_upper, q_goal, q_path, q_u, u_hover, then
     [lambda, radius, lam_omni, margin_v]."""
     cp = sp.cost
@@ -71,11 +135,6 @@ def pack_constants(sp: SolverParams, Ad, Bd, cvec) -> torch.Tensor:
         f(cp.q_u), f(cp.u_hover), f(cp.collide_lambda), f(cp.drone_radius), f(cp.lam_omni),
         f(cp.margin_v),
     ])
-
-
-def workspace_floats(b: int, n: int) -> int:
-    """Workspace size: per scenario us, xs, kff, K^T and two candidate slots."""
-    return b * (4 * n * NU + (n + 1) * NX + n * NX * NU + 2 * (n + 1) * NX)
 
 
 def sqp_solve(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper = SolverHyper()) -> SolveResult:
@@ -111,14 +170,13 @@ def sqp_solve(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper =
     stats = torch.empty((4, b), dtype=torch.float32, device=dev)  # cost, grad_norm, reg, updates
     if b == 0:
         return _result(us, xs, stats, hp)
-    ws_n = workspace_floats(b, n)
-    ws = torch.empty(ws_n, dtype=torch.float32, device=dev)
+    geo = launch_geometry(b, n, k_obs, hp.n_alphas)
+    kt_ws = torch.empty((b, n, NU * NX), dtype=torch.float32, device=dev)  # each stage's K^T, kernel-private
     err = _launcher()(
         consts.data_ptr(), consts.numel(), x0.data_ptr(), us_init.data_ptr(), ref.data_ptr(),
-        obs.data_ptr(), target.data_ptr(), us.data_ptr(), xs.data_ptr(), stats.data_ptr(),
-        ws.data_ptr(), ws_n, b, n, k_obs, hp.iters, hp.n_alphas, hp.boxqp_iters,
-        hp.reg_init, hp.reg_min, hp.reg_max, hp.grad_tol,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        obs.data_ptr(), target.data_ptr(), us.data_ptr(), xs.data_ptr(), stats.data_ptr(), kt_ws.data_ptr(),
+        b, n, k_obs, hp.iters, hp.n_alphas, hp.boxqp_iters, hp.reg_init, hp.reg_min, hp.reg_max, hp.grad_tol,
+        *geo, dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

@@ -12,7 +12,10 @@ ticks, once with the fused solve and once with the per-phase solve
 (``fuse=False``), and runs the op microbench.  Phases:
 
 1. card and build: ``nvidia-smi`` name / power limit, build time (all five
-   sources, one nvcc each in parallel), registers and spills per kernel;
+   sources, one nvcc each in parallel), registers and spills per kernel,
+   the launch of the sweep, line-search and SQP kernels, and the SQP
+   kernel's resident warps per SM (CUDA's occupancy calculator; at least
+   8 at B=4096, N=20);
 2. k-NN kernel vs plain at B=4096, Q=20, P=1024, k=3 with ~10% of the
    points masked, one scenario with fewer than 3 valid points and one with
    duplicated points: distances and coordinates must be identical;
@@ -20,10 +23,15 @@ ticks, once with the fused solve and once with the per-phase solve
    max|dus| <= 1e-3 and rel dcost <= 1e-4; (b) iters=10, grad_tol=1e-4,
    tol_exit True then False: max|dus| <= 1e-3 on the scenarios both
    converged, converged fractions within 0.02, outputs finite and in bounds;
+   the cold solve's kernel time (profiler) and its updates per scenario
+   (mean, p99, max); (c) both gates at every ``EDGE_CASES`` shape below,
+   (a) on >= 99.9% of scenarios, each of which must run 3 updates;
 4. SQP kernel vs the JAX CPU golden (tests/data/fused_gold.npz): on the
    mutually-converged subset max|du0| <= 1e-3;
 5. the fused main path, timed with CUDA events: chained ticks, each kernel's
    launch count must equal the number of ticks (the per-phase kernels 0);
+   the SQP kernel's time at the last tick's inputs beside its time with
+   no update (rollout and one sweep) and with no box-QP iterations;
 6. Riccati-sweep kernel vs plain at the flagship linearization, from the
    hover warm start and from the iterate after one update, reg 1e-6 and 1.0: kff
    within 2e-4, K within 2e-3, dV1 / dV2 / pg within 1e-3 (rtol and atol)
@@ -188,6 +196,8 @@ EDGE_CASES = (
 )
 SWEEP_TOLS = (2e-4, 2e-3, 1e-3, 1e-3, 1e-3)  # kff, K, dV1, dV2, pg
 LS_TOL = 2e-4  # us, xs, cost
+SQP_TOL, SQP_COST_TOL = 1e-3, 1e-4  # us (absolute), cost (relative)
+MIN_WARPS_PER_SM = 8  # resident SQP warps per SM at the flagship launch
 
 
 def sweep_vs_plain(args, label: str):
@@ -246,39 +256,51 @@ def line_search_vs_plain(args, kw, label: str) -> float:
     return err
 
 
-def edge_shapes(dev, seed: int = 1) -> tuple[float, float]:
-    """Phases 6 and 7 at EDGE_CASES: for each, a problem batch from the
-    flagship's generator (``step.build_problem_batch``) at that B and N
-    with K-NN obstacles, an iterate (the hover start, or with tight bounds
-    the hover start spread 4x and clipped into a box of +-1 about hover, so
-    many controls sit on a bound), the sweep kernel vs plain at reg 1e-6,
-    then the line-search kernel vs plain on the plain sweep's gains, with
-    every third scenario's incumbent cost lowered so that it accepts
-    nothing.  Returns the max abs errors (sweep, line search)."""
+def edge_problem(dev, sp, b: int, n: int, k_obs: int, tight: bool, seed: int):
+    """An ``EDGE_CASES`` problem: a batch from the flagship's generator
+    (``step.build_problem_batch``) at that B and N with K-NN obstacles, and
+    a warm start, the hover start, or with tight bounds the hover start
+    spread 4x and clipped into a box of +-1 about hover, so many controls
+    sit on a bound.  Returns (problem, warm start, parameters with the
+    case's bounds)."""
     import torch
 
     from avoid_mpc_torch import step
     from avoid_mpc_torch.ops.knn_cuda import knn_topk
-    from avoid_mpc_torch.solver import ilqr
     from avoid_mpc_torch.solver.ilqr import MPCProblem, hover_warm_start
+
+    cp = sp.cost
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x0, ref, target, pts, mask = step.build_problem_batch(b, n, N_PTS, gen, dev)
+    _, obstacles = knn_topk(ref[..., 0:3].contiguous(), pts, mask, k_obs)
+    us_i = hover_warm_start(n, device=dev, batch=b)
+    lo, hi = sp.u_lower, sp.u_upper
+    if tight:
+        lo, hi = torch.maximum(lo, cp.u_hover - 1.0), torch.minimum(hi, cp.u_hover + 1.0)
+        us_i = us_i + 4.0 * torch.randn(us_i.shape, generator=gen, device=dev)
+    return MPCProblem(x0, ref, obstacles, target), torch.clamp(us_i, lo, hi), sp._replace(u_lower=lo, u_upper=hi)
+
+
+def edge_shapes(dev, seed: int = 1) -> tuple[float, float]:
+    """Phases 6 and 7 at EDGE_CASES (:func:`edge_problem`): the sweep
+    kernel vs plain at reg 1e-6, then the line-search kernel vs plain on
+    the plain sweep's gains, with every third scenario's incumbent cost
+    lowered so that it accepts nothing.  Returns the max abs errors
+    (sweep, line search)."""
+    import torch
+
+    from avoid_mpc_torch import step
+    from avoid_mpc_torch.solver import ilqr
 
     sp, hp = step.flagship_params(dev)
     cp = sp.cost
     Ad, Bd, cvec = ilqr._affine_dynamics(sp, torch.float32)
     bw_err = ls_err = 0.0
     for label, b, n, k_obs, n_alphas, tight in EDGE_CASES:
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        x0, ref, target, pts, mask = step.build_problem_batch(b, n, N_PTS, gen, dev)
-        _, obstacles = knn_topk(ref[..., 0:3].contiguous(), pts, mask, k_obs)
-        problem = MPCProblem(x0, ref, obstacles, target)
-        us_i = hover_warm_start(n, device=dev, batch=b)
-        lo, hi = sp.u_lower, sp.u_upper
-        if tight:
-            lo, hi = torch.maximum(lo, cp.u_hover - 1.0), torch.minimum(hi, cp.u_hover + 1.0)
-            us_i = us_i + 4.0 * torch.randn(us_i.shape, generator=gen, device=dev)
-        us_i = torch.clamp(us_i, lo, hi)
+        problem, us_i, sp_i = edge_problem(dev, sp, b, n, k_obs, tight, seed)
+        x0, ref, obstacles, target = problem
+        lo, hi = sp_i.u_lower, sp_i.u_upper
         xs_i = ilqr._rollout_lti(x0, us_i, Ad, Bd, cvec)
-        sp_i = sp._replace(u_lower=lo, u_upper=hi)
         cx, cxx, lu, luu = ilqr._linearize(problem, xs_i, us_i, sp_i)
         reg = torch.full((b,), 1e-6, device=dev)
         bw_args = (Ad, Bd, luu, lo, hi, cx, cxx, lu, us_i, reg, hp.boxqp_iters)
@@ -294,6 +316,74 @@ def edge_shapes(dev, seed: int = 1) -> tuple[float, float]:
         kw = dict(n_alphas=n_alphas, lam_omni=cp.lam_omni, margin_v=cp.margin_v, u_hover=cp.u_hover)
         ls_err = max(ls_err, line_search_vs_plain(ls_args, kw, label))
     return bw_err, ls_err
+
+
+def sqp_vs_plain(problem, us_i, sp, hp, label: str, phase: str) -> float:
+    """The SQP kernel against ``solve_plain``: (a) iters=3, grad_tol=0: us
+    within SQP_TOL and relative cost within SQP_COST_TOL on >= 99.9% of
+    scenarios, every scenario ran 3 updates; (b) the given ``hp`` (10
+    iterations, grad_tol 1e-4), tol_exit True then False: us within SQP_TOL
+    on the scenarios both converged, converged fractions within 0.02.  All
+    outputs finite and in bounds.  Returns the max abs error on us of the
+    gated sets."""
+    import torch
+
+    from avoid_mpc_torch.solver.ilqr import solve_plain
+    from avoid_mpc_torch.solver.sqp_cuda import sqp_solve
+
+    lo, hi = sp.u_lower, sp.u_upper
+    b = us_i.shape[0]
+
+    def sane(r):
+        finite = all(bool(torch.isfinite(t).all()) for t in (r.us, r.xs, r.cost, r.grad_norm, r.reg))
+        return finite and bool(((r.us >= lo) & (r.us <= hi)).all())
+
+    hp3 = hp._replace(iters=3, grad_tol=0.0)
+    r_k, r_p = sqp_solve(problem, us_i, sp, hp3), solve_plain(problem, us_i, sp, hp3)
+    torch.cuda.synchronize()
+    du = (r_k.us - r_p.us).abs().reshape(b, -1).amax(dim=1)
+    rel = (r_k.cost - r_p.cost).abs() / r_p.cost.abs().clamp_min(1.0)
+    bad = (du > SQP_TOL) | (rel > SQP_COST_TOL)
+    n_bad = int(bad.sum())
+    err = float(du[~bad].max()) if n_bad < b else float("nan")
+    all3 = bool((r_k.iterations == 3).all())
+    ok_a = sane(r_k)
+    check(n_bad <= b // 1000 and all3 and ok_a,
+          f"sqp {label} (a): {n_bad} scenarios outside tolerance (max {b // 1000}), every scenario 3 updates: {all3}, "
+          f"finite and in bounds: {ok_a}")
+    line = (f"phase {phase} sqp kernel vs plain, {label}: (a) iters=3 grad_tol=0 {n_bad}/{b} outside, max|dus| "
+            f"{float(du.max()):.3e} max rel dcost {float(rel.max()):.3e}, 3 updates each: {all3}")
+    r_p = solve_plain(problem, us_i, sp, hp)
+    for tol_exit in (True, False):
+        r_k = sqp_solve(problem, us_i, sp, hp._replace(tol_exit=tol_exit))
+        torch.cuda.synchronize()
+        both = r_k.converged & r_p.converged
+        du_b = float((r_k.us - r_p.us).abs()[both].max()) if bool(both.any()) else float("nan")
+        cf_k, cf_p = float(r_k.converged.float().mean()), float(r_p.converged.float().mean())
+        ok_b = sane(r_k)
+        check(bool(both.any()) and du_b <= SQP_TOL and abs(cf_k - cf_p) <= 0.02 and ok_b,
+              f"sqp {label} (b) tol_exit={tol_exit}: both-converged {int(both.sum())} max|dus| {du_b:.3e}, converged "
+              f"{cf_k:.4f} vs plain {cf_p:.4f}, finite and in bounds: {ok_b}")
+        err = max(err, du_b)
+        line += (f"; (b) tol_exit={tol_exit} both-converged {int(both.sum())}/{b} max|dus| {du_b:.3e}, converged kernel "
+                 f"{cf_k:.4f} plain {cf_p:.4f}, mean updates {float(r_k.iterations.float().mean()):.3f}")
+    print(line + f", finite and in bounds: {ok_a and ok_b}", flush=True)
+    return err
+
+
+def sqp_edge_shapes(dev, seed: int = 1) -> float:
+    """Phase 3c: :func:`sqp_vs_plain` at every ``EDGE_CASES`` shape
+    (:func:`edge_problem`, the case's number of alphas).  Returns the max
+    abs error on us."""
+    from avoid_mpc_torch import step
+
+    sp, hp = step.flagship_params(dev)
+    err = 0.0
+    for label, b, n, k_obs, n_alphas, tight in EDGE_CASES:
+        problem, us_i, sp_i = edge_problem(dev, sp, b, n, k_obs, tight, seed)
+        err = max(err, sqp_vs_plain(problem, us_i, sp_i, hp._replace(n_alphas=n_alphas),
+                                    f"{label} (B={b}, N={n}, K={k_obs}, A={n_alphas})", "3c"))
+    return err
 
 
 def main() -> int:
@@ -312,7 +402,7 @@ def main() -> int:
     from avoid_mpc_torch import cuda_build, step
     from avoid_mpc_torch.ops.knn import knn_plain
     from avoid_mpc_torch.ops.knn_cuda import knn_topk
-    from avoid_mpc_torch.solver import backward_cuda, forward_cuda, ilqr
+    from avoid_mpc_torch.solver import backward_cuda, forward_cuda, ilqr, sqp_cuda
     from avoid_mpc_torch.solver.backward_cuda import riccati_backward
     from avoid_mpc_torch.solver.forward_cuda import line_search
     from avoid_mpc_torch.solver.ilqr import MPCProblem, hover_warm_start, solve_plain
@@ -339,12 +429,23 @@ def main() -> int:
                             f"{r.get('spill_stores')}/{r.get('spill_loads')} B spill st/ld")
     print(f"phase 1 build: {build_s:.1f} s wall ({', '.join(f'{k} {v:.1f} s' for k, v in built.items()) or 'cached'}); "
           + "; ".join(res_line), flush=True)
+    sqp_geo = sqp_cuda.launch_geometry(B, N_HORIZON, K_NN, 8)
     for mod, geo in (("sweep", backward_cuda.launch_geometry(B, N_HORIZON)),
                      ("line search", forward_cuda.launch_geometry(B, N_HORIZON, K_NN, 8)),
-                     ("line search N=30", forward_cuda.launch_geometry(B, 30, K_NN, 8))):
+                     ("line search N=30", forward_cuda.launch_geometry(B, 30, K_NN, 8)),
+                     ("sqp", sqp_geo),
+                     ("sqp N=30", sqp_cuda.launch_geometry(B, 30, K_NN, 8))):
         print(f"phase 1 {mod} launch at B={B}: grid {geo.grid} x {geo.threads} threads ({geo.grid * geo.threads} in "
               f"flight), {geo.scenarios_per_block} scenarios per block, {geo.lanes_per_scenario} lanes each, "
               f"{geo.shared_bytes} B dynamic shared memory per block", flush=True)
+    sqp_blocks = sqp_cuda.blocks_per_sm(sqp_geo, dev.index)
+    sqp_warps = sqp_blocks * sqp_geo.threads // 32
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    check(sqp_warps >= MIN_WARPS_PER_SM, f"sqp: {sqp_warps} resident warps per SM, want >= {MIN_WARPS_PER_SM}")
+    print(f"phase 1 sqp occupancy at B={B}, N={N_HORIZON}: {sqp_blocks} blocks = {sqp_warps} warps "
+          f"({sqp_blocks * sqp_geo.scenarios_per_block} scenarios) resident per SM, {n_sm} SMs hold "
+          f"{n_sm * sqp_blocks * sqp_geo.scenarios_per_block} of the {B} scenarios at once "
+          f"({B / (n_sm * sqp_blocks * sqp_geo.scenarios_per_block):.2f} waves)", flush=True)
     print(f"phase 1 device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
 
@@ -417,10 +518,17 @@ def main() -> int:
         print(f"phase 3b sqp iters=10 grad_tol=1e-4 tol_exit={tol_exit}: both-converged {int(both.sum())}/{B} "
               f"max|dus| {du_b:.3e}, converged kernel {cf_k:.4f} plain {cf_p:.4f}, mean updates "
               f"{float(r_k.iterations.float().mean()):.3f}, finite={finite} in_bounds={inb}", flush=True)
-    cold_ms = cuda_ms(lambda: sqp_solve(problem, us0, sp, hp), reps=5, warmup=1)
+    cold_ms = kernel_ms(lambda: sqp_solve(problem, us0, sp, hp), "sqp_solve_kernel", reps=5)
+    cold_its = r_k.iterations.float()
     cold_ops = flop_count(N_HORIZON, K_NN, hp.n_alphas, hp.boxqp_iters, r_k.iterations.tolist())
-    print(f"phase 3 sqp from the hover warm start: kernel {cold_ms:.3f} ms, plain {cold_plain_ms:.1f} ms (one call), "
-          f"bound {bound_ms(byte_count(B, N_HORIZON, K_NN), cold_ops)[0]:.4f} ms ({cold_ops / 1e9:.3f} GFLOP)", flush=True)
+    cold_bound = bound_ms(byte_count(B, N_HORIZON, K_NN), cold_ops)[0]
+    print(f"phase 3 sqp from the hover warm start: kernel {cold_ms:.4f} ms (device time, profiler), plain "
+          f"{cold_plain_ms:.1f} ms (one call), bound {cold_bound:.4f} ms ({cold_ops / 1e9:.3f} GFLOP), ratio "
+          f"{cold_ms / cold_bound:.1f}x; updates per scenario mean {float(cold_its.mean()):.3f} p99 "
+          f"{float(cold_its.quantile(0.99)):.0f} max {int(cold_its.max())}", flush=True)
+
+    # ---- 3c. SQP kernel vs plain at the edge shapes ----
+    sqp_err = max(sqp_err, sqp_edge_shapes(dev))
 
     # ---- 4. SQP kernel vs the JAX CPU golden ----
     g = verify_fused.run(dev)
@@ -487,6 +595,14 @@ def main() -> int:
           f"{sqp_bound:.4f} {sqp_by}: {sqp_ops / 1e9:.3f} GFLOP, mean updates {float(r_k.iterations.float().mean()):.3f}, "
           f"both-converged {int(both.sum())}/{B} max|dus| {du_m:.3e}); tick p50 {p50:.3f} = knn {knn_ms:.3f} + sqp "
           f"{sqp_ms:.3f} + other {other:.3f} ms (host glue, torch ops and idle)", flush=True)
+    # where the SQP kernel's time goes, by what the same inputs cost with less of the solve
+    hp0 = hp._replace(iters=0, grad_tol=0.0)
+    sqp0_ms = kernel_ms(lambda: sqp_solve(prob_in, us_in, sp, hp0), "sqp_solve_kernel", reps=10)
+    sqp0q_ms = kernel_ms(lambda: sqp_solve(prob_in, us_in, sp, hp0._replace(boxqp_iters=0)), "sqp_solve_kernel",
+                         reps=10)
+    print(f"phase 5 sqp breakdown at the main path's inputs (profiler): rollout + one sweep (iters=0) {sqp0_ms:.4f} ms, "
+          f"of it the box QP's {hp.boxqp_iters} iterations {sqp0_ms - sqp0q_ms:.4f} ms (iters=0, boxqp_iters=0: "
+          f"{sqp0q_ms:.4f}); the update (line search, commit and the second sweep) {sqp_ms - sqp0_ms:.4f} ms", flush=True)
     fused_busy, fused_htod, fused_htod_ms = device_busy(
         lambda: step.solve_step(x0, ref_in, target, pts, mask, us_in, sp, hp))
     check(fused_busy > 0, "the profiler saw no device activity in a fused tick")
