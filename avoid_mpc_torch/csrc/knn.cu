@@ -1,4 +1,5 @@
-// Masked brute-force top-k nearest neighbours, one block per scenario.
+// Masked brute-force top-k nearest neighbours: queries across lanes, points
+// staged in shared memory and read by broadcast.
 //
 // Replaces the TPU kernel avoid_mpc_tpu/ops/pallas_knn.py::knn_pallas_batched
 // (batch in lanes, k passes of min / first-argmin / mask-out per query).
@@ -14,176 +15,373 @@
 // Layout: queries (B,Q,3), points (B,P,3), mask (B,P) uint8, all f32 /
 // contiguous; outputs dists (B,Q,k) = sqrt(d2), pts (B,Q,k,3).
 //
-// Design: the block stages its scenario's points (SoA) and mask in shared
-// memory in CHUNK-point pieces, so any P works (P=1024: 12 KB + 1 KB).  Each
-// warp takes one query at a time (queries loop over the warps, so Q is not
-// fixed).  Each lane keeps a sorted top-k of (d2, index) over the points
-// lane, lane+32, ...; strict < on insertion keeps the earlier index on ties.
-// The warp then merges the 32 lists with k rounds of a lexicographic
-// (d2, index) warp-min.  With one chunk the points are loaded once and serve
-// every query; with several, each round of queries reloads them (from L2).
+// Design.  The geometry comes from ops/knn_cuda.py::launch_geometry.  A block
+// owns one scenario, a tile of `qpb` queries and one of `splits` ranges of at
+// most 2048 of the scenario's points; blocks of one scenario are adjacent in
+// the grid.  Thread t serves query t % qpb and slice s = t / qpb of `slices`,
+// a contiguous run of the range that it sweeps in increasing order (20
+// queries: 6 slices, 120 of 128 threads).  Queries sit in lanes, so the lanes
+// of a warp read at most two points per step: one 16-byte shared load of a
+// packed float4 serves the warp.  The sweep keeps a top-k of (d2, index) in
+// registers; a strict `d2 <` insertion keeps ties on the lower index because
+// one thread visits indices in increasing order.  Afterwards each thread
+// takes its winners' coordinates from the tile.
+//   - Mask: a masked point is staged with coordinates +inf, so its d2 is inf
+//     (or NaN for an infinite query) and never passes `d2 < worst`, whose
+//     start is inf: it is never inserted, as knn_plain's inf distance never
+//     reports a point.  No branch on the mask in the sweep.
+//   - Staging: the range's 12-byte points are one contiguous run, loaded with
+//     16-byte vector loads (scalar at the unaligned head and tail) and
+//     scattered into the float4 tile, which is sized to the range.  Thirteen
+//     16 KB blocks share an SM at the flagship, so one block's staging
+//     overlaps the others' sweeps (a probe without staging ran no faster).
+//   - Merge: the slices' lists meet in shared memory and the slice-0 thread
+//     of each query inserts them by the lexicographic (d2, index) order.  The
+//     coordinates travel with the merged lists, so no output slot reads
+//     device memory; the block writes its outputs coalesced from shared
+//     memory.
+//   - Split: with splits > 1 (large P, or few scenarios and query tiles: the
+//     dedupe and brute-force rescue shapes) each block writes its merged
+//     lists to a workspace and the last block of a (scenario, query tile) to
+//     finish (a counter, after a __threadfence) folds all of them: slice s
+//     takes ranges s, s + slices, ..., so here the lexicographic order is
+//     what keeps ties on the lower index.  Still one launch.
 //
-// Bound on the H100: bytes.  At the flagship shape (B=4096, Q=20, P=1024,
-// k=3) the kernel must read 50.3 MB of points, 4.2 MB of mask and 1 MB of
-// queries and write 4 MB of results, against ~84M distance evaluations
-// (~0.7 GFLOP): ~18 us at 3.35 TB/s.  Each point is read from device memory
-// once per scenario; the reuse across the Q queries comes from shared memory.
+// Bound on the H100: operations.  At the flagship shape (B=4096, Q=20,
+// P=1024, k=3) the kernel must read 50.3 MB of points, 4.2 MB of mask and
+// 1 MB of queries and write 4 MB of results (~18 us at 3.35 TB/s), and do
+// 8 f32 instructions per valid (query, point) pair that may not contract
+// into FMAs (~0.67 G instructions, ~20 us at 132 SMs x 128 lanes x 1.98 GHz).
+// The sweep issues ~15 instructions a pair (the 8, the shared load, the
+// compare and its branch with the divergence barrier, the loop) and a warp
+// takes the insertion branch whenever one of its 32 queries improves, which
+// at 171 points a thread is most steps; PERF.md has the measured split.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 #include <limits.h>
 
-#define KNN_THREADS 256
-#define KNN_WARPS (KNN_THREADS / 32)
-#define KNN_CHUNK 2048
+#define KNN_MAX_THREADS 128
+#define KNN_MAX_RANGE 2048
 #define KNN_FAR_SENTINEL 1e4f
 
 __device__ __forceinline__ bool lex_less(float da, int ia, float db, int ib) {
   return da < db || (da == db && ia < ib);
 }
 
+// The sweep's sorted top-K of (d2, index) in registers.  A point of one
+// thread's increasing sweep enters by strict < on d2 alone.
 template <int K>
-__global__ void __launch_bounds__(KNN_THREADS)
-knn_topk_kernel(const float* __restrict__ queries, const float* __restrict__ points,
-                const uint8_t* __restrict__ mask, float* __restrict__ out_d,
-                float* __restrict__ out_p, int Q, int P) {
-  __shared__ float sx[KNN_CHUNK];
-  __shared__ float sy[KNN_CHUNK];
-  __shared__ float sz[KNN_CHUNK];
-  __shared__ uint8_t sm[KNN_CHUNK];
+struct SweepTopK {
+  float d[K];
+  int i[K];
 
-  const int b = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const float* pts = points + (size_t)b * P * 3;
-  const uint8_t* msk = mask + (size_t)b * P;
-  const int n_chunks = (P + KNN_CHUNK - 1) / KNN_CHUNK;
-  const int rounds = (Q + KNN_WARPS - 1) / KNN_WARPS;
-
-  for (int r = 0; r < rounds; ++r) {
-    const int qi = r * KNN_WARPS + warp;
-    const bool active = qi < Q;  // uniform across the warp
-    float qx = 0.0f, qy = 0.0f, qz = 0.0f;
-    if (active) {
-      const float* qp = queries + ((size_t)b * Q + qi) * 3;
-      qx = qp[0];
-      qy = qp[1];
-      qz = qp[2];
-    }
-    float bd[K];
-    int bi[K];
+  __device__ __forceinline__ void clear() {
 #pragma unroll
     for (int s = 0; s < K; ++s) {
-      bd[s] = INFINITY;
-      bi[s] = INT_MAX;
+      d[s] = INFINITY;
+      i[s] = INT_MAX;
     }
-
-    for (int c = 0; c < n_chunks; ++c) {
-      const int base = c * KNN_CHUNK;
-      const int len = min(KNN_CHUNK, P - base);
-      if (n_chunks > 1 || r == 0) {  // one resident chunk serves every round
-        __syncthreads();
-        for (int j = threadIdx.x; j < len; j += KNN_THREADS) {
-          const float* pj = pts + (size_t)(base + j) * 3;
-          sx[j] = pj[0];
-          sy[j] = pj[1];
-          sz[j] = pj[2];
-          sm[j] = msk[base + j];
-        }
-        __syncthreads();
-      }
-      if (!active) continue;
-      for (int j = lane; j < len; j += 32) {
-        if (!sm[j]) continue;
-        const float dx = __fsub_rn(sx[j], qx);
-        const float dy = __fsub_rn(sy[j], qy);
-        const float dz = __fsub_rn(sz[j], qz);
-        const float d2 =
-            __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-        if (d2 < bd[K - 1]) {
-          bd[K - 1] = d2;
-          bi[K - 1] = base + j;
+  }
+  __device__ __forceinline__ void insert(float dd, int ii) {
+    if (dd < d[K - 1]) {
+      d[K - 1] = dd;
+      i[K - 1] = ii;
 #pragma unroll
-          for (int s = K - 1; s > 0; --s) {
-            if (bd[s] < bd[s - 1]) {
-              const float td = bd[s];
-              bd[s] = bd[s - 1];
-              bd[s - 1] = td;
-              const int ti = bi[s];
-              bi[s] = bi[s - 1];
-              bi[s - 1] = ti;
-            }
-          }
+      for (int s = K - 1; s > 0; --s) {
+        if (d[s] < d[s - 1]) {
+          const float t = d[s]; d[s] = d[s - 1]; d[s - 1] = t;
+          const int ti = i[s]; i[s] = i[s - 1]; i[s - 1] = ti;
         }
       }
     }
+  }
+};
 
-    if (!active) continue;
-    // k rounds of a lexicographic (d2, index) warp-min over the lane heads;
-    // the winning lane pops its head.
+// A sorted top-K of (d2, index, x, y, z) in registers, for the merges.
+template <int K>
+struct TopK {
+  float d[K], x[K], y[K], z[K];
+  int i[K];
+
+  __device__ __forceinline__ void clear() {
 #pragma unroll
     for (int s = 0; s < K; ++s) {
-      float md = bd[0];
-      int mi = bi[0];
+      d[s] = INFINITY;
+      i[s] = INT_MAX;
+      x[s] = y[s] = z[s] = 0.0f;
+    }
+  }
+  __device__ __forceinline__ void swap_down(int s) {
+    float t = d[s]; d[s] = d[s - 1]; d[s - 1] = t;
+    int ti = i[s]; i[s] = i[s - 1]; i[s - 1] = ti;
+    t = x[s]; x[s] = x[s - 1]; x[s - 1] = t;
+    t = y[s]; y[s] = y[s - 1]; y[s - 1] = t;
+    t = z[s]; z[s] = z[s - 1]; z[s - 1] = t;
+  }
+  // An entry of another list: the lexicographic (d2, index) order.
+  __device__ __forceinline__ void merge_insert(float dd, int ii, float xx, float yy, float zz) {
+    if (lex_less(dd, ii, d[K - 1], i[K - 1])) {
+      d[K - 1] = dd; i[K - 1] = ii; x[K - 1] = xx; y[K - 1] = yy; z[K - 1] = zz;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float od = __shfl_xor_sync(0xffffffffu, md, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, mi, off);
-        if (lex_less(od, oi, md, mi)) {
-          md = od;
-          mi = oi;
-        }
-      }
-      if (mi != INT_MAX && bi[0] == mi) {
+      for (int s = K - 1; s > 0; --s)
+        if (lex_less(d[s], i[s], d[s - 1], i[s - 1])) swap_down(s);
+    }
+  }
+};
+
+// Shared bytes of a launch: the point tile, or the merge lists of every
+// thread and the block's output staging, whichever is larger (they are
+// used one after the other).  ops/knn_cuda.py::shared_bytes mirrors it.
+static long knn_smem_bytes(int threads, int qpb, int k, int range_pts) {
+  const long tile = 16L * range_pts;
+  const long merge = 20L * threads * k + 16L * qpb * k;
+  return tile > merge ? tile : merge;
+}
+
+// Floats [3 lo, 3 (lo + len)) of the scenario's points into tile[0, len),
+// coordinates +inf where the point is masked.
+__device__ __forceinline__ void stage_points(float4* tile, const float* __restrict__ pts,
+                                             const uint8_t* __restrict__ msk, int lo, int len) {
+  float* t = reinterpret_cast<float*>(tile);
+  const float* f0 = pts + 3L * lo;
+  const uint8_t* m0 = msk + lo;
+  const int nf = 3 * len;
+  int head = (int)(((16u - ((uintptr_t)f0 & 15u)) & 15u) >> 2);
+  head = min(head, nf);
+  const int nvec = (nf - head) >> 2;
+  auto put = [&](int f, float v) {
+    const int j = f / 3;
+    t[4 * j + (f - 3 * j)] = __ldg(m0 + j) ? v : INFINITY;
+  };
+  for (int f = threadIdx.x; f < head; f += blockDim.x) put(f, __ldg(f0 + f));
+  const float4* v4 = reinterpret_cast<const float4*>(f0 + head);
+#pragma unroll 4
+  for (int w = threadIdx.x; w < nvec; w += blockDim.x) {
+    const float4 v = __ldg(v4 + w);
+    const int f = head + 4 * w;
+    put(f, v.x);
+    put(f + 1, v.y);
+    put(f + 2, v.z);
+    put(f + 3, v.w);
+  }
+  for (int f = head + 4 * nvec + threadIdx.x; f < nf; f += blockDim.x) put(f, __ldg(f0 + f));
+}
+
+// The block's slice lists meet in shared memory; the slice-0 thread of each
+// query merges them (lexicographic order) into its own.  Every thread of the
+// block calls it.  smem is reused: the caller has synchronised after its
+// last read of the tile.
+template <int K>
+__device__ __forceinline__ void merge_slices(TopK<K>& top, char* smem, int qi, int s, int slices,
+                                             int qpb, bool active) {
+  const int T = blockDim.x;
+  float* md = reinterpret_cast<float*>(smem);
+  int* mi = reinterpret_cast<int*>(md + T * K);
+  float* mx = reinterpret_cast<float*>(mi + T * K);
+  float* my = mx + T * K;
+  float* mz = my + T * K;
+  if (active && s > 0) {
 #pragma unroll
-        for (int t = 0; t < K - 1; ++t) {
-          bd[t] = bd[t + 1];
-          bi[t] = bi[t + 1];
-        }
-        bd[K - 1] = INFINITY;
-        bi[K - 1] = INT_MAX;
-      }
-      if (lane == 0) {
-        const size_t o = ((size_t)b * Q + qi) * K + s;
-        if (mi != INT_MAX) {
-          const float* pw = pts + (size_t)mi * 3;
-          out_d[o] = __fsqrt_rn(md);
-          out_p[o * 3 + 0] = pw[0];
-          out_p[o * 3 + 1] = pw[1];
-          out_p[o * 3 + 2] = pw[2];
-        } else {
-          out_d[o] = INFINITY;
-          out_p[o * 3 + 0] = KNN_FAR_SENTINEL;
-          out_p[o * 3 + 1] = KNN_FAR_SENTINEL;
-          out_p[o * 3 + 2] = KNN_FAR_SENTINEL;
-        }
+    for (int r = 0; r < K; ++r) {
+      const int o = threadIdx.x * K + r;
+      md[o] = top.d[r]; mi[o] = top.i[r]; mx[o] = top.x[r]; my[o] = top.y[r]; mz[o] = top.z[r];
+    }
+  }
+  __syncthreads();
+  if (active && s == 0) {
+    for (int s2 = 1; s2 < slices; ++s2) {
+      const int base = (s2 * qpb + qi) * K;
+#pragma unroll
+      for (int r = 0; r < K; ++r) {
+        const int o = base + r;
+        top.merge_insert(md[o], mi[o], mx[o], my[o], mz[o]);
       }
     }
   }
 }
 
+// The merged lists of the block's nq queries, as dists / coordinates,
+// through shared memory to coalesced stores.
+template <int K>
+__device__ __forceinline__ void store_outputs(const TopK<K>& top, char* smem, int qi, int s, int qpb,
+                                              bool active, int nq, float* __restrict__ out_d,
+                                              float* __restrict__ out_p) {
+  float* od = reinterpret_cast<float*>(smem + 20L * blockDim.x * K);
+  float* op = od + qpb * K;
+  if (active && s == 0) {
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      const int o = qi * K + r;
+      const bool found = top.i[r] != INT_MAX;
+      od[o] = found ? __fsqrt_rn(top.d[r]) : INFINITY;
+      op[3 * o + 0] = found ? top.x[r] : KNN_FAR_SENTINEL;
+      op[3 * o + 1] = found ? top.y[r] : KNN_FAR_SENTINEL;
+      op[3 * o + 2] = found ? top.z[r] : KNN_FAR_SENTINEL;
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < nq * K; e += blockDim.x) out_d[e] = od[e];
+  for (int e = threadIdx.x; e < nq * K * 3; e += blockDim.x) out_p[e] = op[e];
+}
+
+template <int K>
+__global__ void __launch_bounds__(KNN_MAX_THREADS)
+knn_topk_kernel(const float* __restrict__ queries, const float* __restrict__ points,
+                const uint8_t* __restrict__ mask, float* __restrict__ out_d,
+                float* __restrict__ out_p, float* __restrict__ ws, int* __restrict__ counters,
+                int Q, int P, int qpb, int slices, int splits, int range_pts) {
+  extern __shared__ float4 knn_smem[];
+  char* smem = reinterpret_cast<char*>(knn_smem);
+
+  const int n_qt = (Q + qpb - 1) / qpb;
+  const int r = blockIdx.x % splits;
+  const int tile_id = blockIdx.x / splits;  // b * n_qt + qt
+  const int qt = tile_id % n_qt;
+  const int b = tile_id / n_qt;
+  const int q0 = qt * qpb;
+  const int nq = min(qpb, Q - q0);
+  const int qi = threadIdx.x % qpb;
+  const int s = threadIdx.x / qpb;
+  const bool active = s < slices && qi < nq;
+
+  float qx = 0.0f, qy = 0.0f, qz = 0.0f;
+  if (active) {
+    const float* qp = queries + ((long)b * Q + q0 + qi) * 3;
+    qx = __ldg(qp);
+    qy = __ldg(qp + 1);
+    qz = __ldg(qp + 2);
+  }
+  const int p_lo = r * range_pts;
+  const int len = max(0, min(P - p_lo, range_pts));
+  stage_points(knn_smem, points + (long)b * P * 3, mask + (long)b * P, p_lo, len);
+  __syncthreads();
+  SweepTopK<K> best;
+  best.clear();
+  if (active) {
+    const int per = (len + slices - 1) / slices;  // slice s: points [s per, (s + 1) per)
+    const int j_end = min(len, (s + 1) * per);
+#pragma unroll 4
+    for (int j = s * per; j < j_end; ++j) {
+      const float4 p = knn_smem[j];
+      const float dx = __fsub_rn(p.x, qx);
+      const float dy = __fsub_rn(p.y, qy);
+      const float dz = __fsub_rn(p.z, qz);
+      const float d2 =
+          __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+      best.insert(d2, j);
+    }
+  }
+  // the winners' coordinates from the tile, before the merge lists reuse it
+  TopK<K> top;
+#pragma unroll
+  for (int t = 0; t < K; ++t) {
+    top.d[t] = best.d[t];
+    top.i[t] = best.i[t] == INT_MAX ? INT_MAX : p_lo + best.i[t];
+    const float4 p = best.i[t] == INT_MAX ? make_float4(0.f, 0.f, 0.f, 0.f) : knn_smem[best.i[t]];
+    top.x[t] = p.x;
+    top.y[t] = p.y;
+    top.z[t] = p.z;
+  }
+  __syncthreads();  // the tile is free for the merge lists
+  merge_slices<K>(top, smem, qi, s, slices, qpb, active);
+
+  const long out0 = ((long)b * Q + q0) * K;
+  if (splits == 1) {
+    store_outputs<K>(top, smem, qi, s, qpb, active, nq, out_d + out0, out_p + out0 * 3);
+    return;
+  }
+
+  // Split over point ranges: this block's lists to the workspace, records
+  // of (d2, index bits, x, y, z) at ((b Q + q) splits + r) K + slot.
+  if (active && s == 0) {
+    float* w = ws + (((long)b * Q + q0 + qi) * splits + r) * K * 5;
+#pragma unroll
+    for (int t = 0; t < K; ++t) {
+      w[5 * t + 0] = top.d[t];
+      w[5 * t + 1] = __int_as_float(top.i[t]);
+      w[5 * t + 2] = top.x[t];
+      w[5 * t + 3] = top.y[t];
+      w[5 * t + 4] = top.z[t];
+    }
+    __threadfence();
+  }
+  __shared__ int is_last;
+  __syncthreads();
+  if (threadIdx.x == 0) is_last = atomicAdd(counters + tile_id, 1) == splits - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  // The last block folds every range's list: slice s takes ranges s,
+  // s + slices, ..., then the slices merge as before.
+  top.clear();
+  if (active) {
+    const float* wq = ws + ((long)b * Q + q0 + qi) * splits * K * 5;
+    for (int rr = s; rr < splits; rr += slices) {
+#pragma unroll
+      for (int t = 0; t < K; ++t) {
+        const float* e = wq + ((long)rr * K + t) * 5;
+        top.merge_insert(__ldcg(e), __float_as_int(__ldcg(e + 1)), __ldcg(e + 2), __ldcg(e + 3),
+                         __ldcg(e + 4));
+      }
+    }
+  }
+  __syncthreads();  // every thread has read the merge lists of the first pass
+  merge_slices<K>(top, smem, qi, s, slices, qpb, active);
+  store_outputs<K>(top, smem, qi, s, qpb, active, nq, out_d + out0, out_p + out0 * 3);
+}
+
 // ---- host launch (plain C interface, loaded with ctypes) ----
 
+typedef void (*knn_kernel_t)(const float*, const float*, const uint8_t*, float*, float*, float*,
+                             int*, int, int, int, int, int, int);
+
+static knn_kernel_t knn_kernel_for(int k) {
+  switch (k) {
+    case 1: return knn_topk_kernel<1>;
+    case 2: return knn_topk_kernel<2>;
+    case 3: return knn_topk_kernel<3>;
+    case 4: return knn_topk_kernel<4>;
+    default: return nullptr;
+  }
+}
+
+// The geometry comes from ops/knn_cuda.py::launch_geometry.  The launcher
+// refuses one that does not cover every (scenario, query, point) exactly
+// once with this file's thread mapping and shared-memory layout.  ws
+// ((B Q splits k 5) floats) and counters (B ceil(Q/qpb) zeroed ints) are
+// read only when splits > 1.
 extern "C" int knn_topk_launch(const void* queries, const void* points, const void* mask,
-                               void* out_d, void* out_p, int B, int Q, int P, int k,
-                               int device, void* stream) {
+                               void* out_d, void* out_p, void* ws, void* counters, int B, int Q,
+                               int P, int k, int grid, int threads, int qpb, int slices,
+                               int splits, int range_pts, int smem_bytes, int device,
+                               void* stream) {
+  const knn_kernel_t kern = knn_kernel_for(k);
+  if (kern == nullptr || B < 1 || Q < 1 || P < 0) return (int)cudaErrorInvalidValue;
+  const long n_qt = (Q + (long)qpb - 1) / (qpb > 0 ? qpb : 1);
+  const long want_splits = P > 0 && range_pts > 0 ? (P + (long)range_pts - 1) / range_pts : 1;
+  if (qpb < 1 || qpb > Q || slices < 1 || range_pts < 1 || range_pts > KNN_MAX_RANGE ||
+      splits != want_splits || threads != (qpb * slices + 31) / 32 * 32 ||
+      threads > KNN_MAX_THREADS || (long)grid != (long)B * n_qt * splits ||
+      (long)smem_bytes != knn_smem_bytes(threads, qpb, k, range_pts) ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidConfiguration;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B);
-  const dim3 block(KNN_THREADS);
-  cudaStream_t s = (cudaStream_t)stream;
-  const float* q = (const float*)queries;
-  const float* p = (const float*)points;
-  const uint8_t* m = (const uint8_t*)mask;
-  float* od = (float*)out_d;
-  float* op = (float*)out_p;
-  switch (k) {
-    case 1: knn_topk_kernel<1><<<grid, block, 0, s>>>(q, p, m, od, op, Q, P); break;
-    case 2: knn_topk_kernel<2><<<grid, block, 0, s>>>(q, p, m, od, op, Q, P); break;
-    case 3: knn_topk_kernel<3><<<grid, block, 0, s>>>(q, p, m, od, op, Q, P); break;
-    case 4: knn_topk_kernel<4><<<grid, block, 0, s>>>(q, p, m, od, op, Q, P); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  kern<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+      (const float*)queries, (const float*)points, (const uint8_t*)mask, (float*)out_d,
+      (float*)out_p, (float*)ws, (int*)counters, Q, P, qpb, slices, splits, range_pts);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the k-NN kernel one SM holds at once (CUDA's occupancy
+// calculator: registers, shared memory and the block limit), into *blocks.
+extern "C" int knn_blocks_per_sm(int k, int threads, int smem_bytes, int device, int* blocks) {
+  const knn_kernel_t kern = knn_kernel_for(k);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, threads, smem_bytes);
 }

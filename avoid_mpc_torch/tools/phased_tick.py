@@ -123,6 +123,32 @@ def run_one(root: Path) -> dict:
             "converged_frac": float(conv.float().mean()), "mean_cost": float(cost.mean())}
 
 
+def run_alternated(script: Path, against: Path | None, pairs: int) -> tuple[str, list[str], dict] | None:
+    """Run ``script --one ROOT`` in a process of its own per run: once on
+    this checkout, or with ``against`` in ``pairs`` pairs ordered this,
+    other, other, this, ...  Prints the card and each run's JSON line (with
+    its run number and tree); returns (card, order, runs by tree), or None
+    after printing a failed run's error output."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(smi or "nvidia-smi: no card", flush=True)
+    trees = {"this": THIS_ROOT}
+    order = ["this"]
+    if against is not None:
+        trees["other"] = against.resolve()
+        order = [t for i in range(pairs) for t in (("this", "other") if i % 2 == 0 else ("other", "this"))]
+    runs: dict[str, list[dict]] = {t: [] for t in trees}
+    for i, tree in enumerate(order):
+        out = subprocess.run([sys.executable, str(script), "--one", str(trees[tree])], capture_output=True, text=True)
+        if out.returncode != 0:
+            print(f"run {i + 1} ({tree}) failed with exit code {out.returncode}:\n{out.stderr[-4000:]}", flush=True)
+            return None
+        rec = {"run": i + 1, "tree": tree, **json.loads(out.stdout.strip().splitlines()[-1])}
+        runs[tree].append(rec)
+        print(json.dumps(rec), flush=True)
+    return smi, order, runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", type=Path, help="a second checkout, run alternately with this one")
@@ -131,25 +157,10 @@ def main(argv=None) -> int:
     if args.one is not None:
         print(json.dumps(run_one(args.one.resolve())), flush=True)
         return 0
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    print(smi or "nvidia-smi: no card", flush=True)
-    trees = {"this": THIS_ROOT}
-    order = ["this"]
-    if args.against is not None:
-        trees["other"] = args.against.resolve()
-        order = [t for i in range(PAIRS) for t in (("this", "other") if i % 2 == 0 else ("other", "this"))]
-    runs: dict[str, list[dict]] = {t: [] for t in trees}
-    for i, tree in enumerate(order):
-        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--one", str(trees[tree])],
-                             capture_output=True, text=True)
-        if out.returncode != 0:
-            print(f"run {i + 1} ({tree}) failed with exit code {out.returncode}:\n{out.stderr[-4000:]}", flush=True)
-            return 1
-        rec = {"run": i + 1, "tree": tree, **json.loads(out.stdout.strip().splitlines()[-1])}
-        runs[tree].append(rec)
-        print(json.dumps(rec), flush=True)
+    done = run_alternated(Path(__file__).resolve(), args.against, PAIRS)
+    if done is None:
+        return 1
+    smi, order, runs = done
     keys = ("p50_ms", "busy_ms", "lin_ms", "lin_host_ms", "sweep_call_ms", "ls_call_ms")
     summary = {t: {k: {"runs": [r[k] for r in rs], "median": statistics.median(r[k] for r in rs)} for k in keys}
                for t, rs in runs.items()}

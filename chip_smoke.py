@@ -13,12 +13,18 @@ ticks, once with the fused solve and once with the per-phase solve
 
 1. card and build: ``nvidia-smi`` name / power limit, build time (all five
    sources, one nvcc each in parallel), registers and spills per kernel,
-   the launch of the sweep, line-search and SQP kernels, and the SQP
+   the launch of the sweep, line-search, SQP and k-NN kernels, the SQP
    kernel's resident warps per SM (CUDA's occupancy calculator; at least
-   8 at B=4096, N=20);
+   8 at B=4096, N=20) and the k-NN kernel's resident blocks per SM; the
+   ``-Xptxas -v`` line of every ``knn_topk_kernel`` instance (no spills);
 2. k-NN kernel vs plain at B=4096, Q=20, P=1024, k=3 with ~10% of the
    points masked, one scenario with fewer than 3 valid points and one with
-   duplicated points: distances and coordinates must be identical;
+   duplicated points: distances and coordinates must be identical; its
+   bound by bytes and by operations (non-FMA instructions); then the same
+   identity at every ``tools/knn_shapes.EDGE_CASES`` shape (B 1 / 4097,
+   Q 1 / 30, k 1 / 2 / 4, P 1 / 3 / 1000, all masked, duplicated and
+   lattice ties, ``assoc_m_max``, the dedupe and the brute-force rescue),
+   and the kernel's time at the dedupe and rescue shapes;
 3. SQP kernel vs plain on the flagship batch: (a) iters=3, grad_tol=0:
    max|dus| <= 1e-3 and rel dcost <= 1e-4; (b) iters=10, grad_tol=1e-4,
    tol_exit True then False: max|dus| <= 1e-3 on the scenarios both
@@ -79,6 +85,11 @@ MB_CHECK_ITERS, MB_ITERS = 64, 1 << 20  # microbench: the check, and the cycle c
 MB_TIMED = ("exp", "ilp8x4", 256)  # the microbench launch timed for the kernels line
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+# The k-NN distance's 3 subtractions, 3 products and 2 sums are each rounded
+# on their own (no FMA contraction, or it would not equal its plain twin bit
+# for bit), so they count as instructions at one per lane per clock: 132 SMs
+# x 128 lanes x 1.98 GHz, half of the FMA-counting F32_OPS_PER_S.
+F32_INSTR_PER_S = 33.5e12
 
 failures: list[str] = []
 
@@ -177,9 +188,9 @@ def disagree(got, want, tol: float):
     return ((got - want).abs() > tol + tol * want.abs()).reshape(got.shape[0], -1).any(dim=1)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -386,6 +397,34 @@ def sqp_edge_shapes(dev, seed: int = 1) -> float:
     return err
 
 
+def knn_edge_shapes(dev) -> tuple[float, dict]:
+    """Phase 2's edge shapes: ``knn_topk`` identical to ``knn_plain`` at
+    every ``tools/knn_shapes.EDGE_CASES`` shape (one line each), then the
+    kernel's time at the dedupe and rescue shapes.  Returns the max abs
+    difference and the times."""
+    from avoid_mpc_torch.ops import knn_cuda
+    from avoid_mpc_torch.ops.knn import knn_plain
+    from avoid_mpc_torch.tools import knn_shapes
+
+    err = 0.0
+    for name, case in knn_shapes.EDGE_CASES.items():
+        same, e = knn_shapes.gate(knn_cuda.knn_topk, knn_plain, case, dev)
+        err = max(err, e)
+        geo = knn_cuda.launch_geometry(*case[:4])
+        check(same, f"knn {name} {case[:4]}: kernel differs from plain (max abs err {e})")
+        print(f"phase 2 knn {name} (B, Q, P, k = {case[:4]}, {case[4]}): identical={same}, launch {geo.grid} blocks x "
+              f"{geo.threads} threads, {geo.slices} slices, {geo.splits} ranges of {geo.range_points}",
+              flush=True)
+    times = {}
+    for name in ("dedupe", "rescue"):
+        qs, pts, mask = knn_shapes.make_inputs(knn_shapes.EDGE_CASES[name], dev)
+        k = knn_shapes.EDGE_CASES[name][3]
+        times[name] = kernel_ms(lambda: knn_cuda.knn_topk(qs, pts, mask, k), "knn_topk_kernel", reps=20)
+    print(f"phase 2 knn times (device time, profiler): dedupe {times['dedupe']:.4f} ms, rescue "
+          f"{times['rescue']:.4f} ms", flush=True)
+    return err, times
+
+
 def main() -> int:
     import torch
 
@@ -401,6 +440,7 @@ def main() -> int:
 
     from avoid_mpc_torch import cuda_build, step
     from avoid_mpc_torch.ops.knn import knn_plain
+    from avoid_mpc_torch.ops import knn_cuda
     from avoid_mpc_torch.ops.knn_cuda import knn_topk
     from avoid_mpc_torch.solver import backward_cuda, forward_cuda, ilqr, sqp_cuda
     from avoid_mpc_torch.solver.backward_cuda import riccati_backward
@@ -429,6 +469,13 @@ def main() -> int:
                             f"{r.get('spill_stores')}/{r.get('spill_loads')} B spill st/ld")
     print(f"phase 1 build: {build_s:.1f} s wall ({', '.join(f'{k} {v:.1f} s' for k, v in built.items()) or 'cached'}); "
           + "; ".join(res_line), flush=True)
+    ptxas = Path(str(cuda_build.library_path("knn")) + ".ptxas.txt").read_text().splitlines()
+    for i, line in enumerate(ptxas):
+        if "knn_topk_kernel" in line and "Compiling entry function" in line:
+            print("phase 1 ptxas " + " | ".join(x.strip() for x in ptxas[i:i + 4] if x.strip()), flush=True)
+    knn_res = [r for r in cuda_build.resources("knn") if "knn_topk_kernel" in r["kernel"]]
+    check(len(knn_res) == 4 and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in knn_res),
+          f"knn_topk_kernel spills or is missing from the ptxas report: {knn_res}")
     sqp_geo = sqp_cuda.launch_geometry(B, N_HORIZON, K_NN, 8)
     for mod, geo in (("sweep", backward_cuda.launch_geometry(B, N_HORIZON)),
                      ("line search", forward_cuda.launch_geometry(B, N_HORIZON, K_NN, 8)),
@@ -446,6 +493,12 @@ def main() -> int:
           f"({sqp_blocks * sqp_geo.scenarios_per_block} scenarios) resident per SM, {n_sm} SMs hold "
           f"{n_sm * sqp_blocks * sqp_geo.scenarios_per_block} of the {B} scenarios at once "
           f"({B / (n_sm * sqp_blocks * sqp_geo.scenarios_per_block):.2f} waves)", flush=True)
+    knn_geo = knn_cuda.launch_geometry(B, N_HORIZON, N_PTS, K_NN)
+    knn_blocks = knn_cuda.blocks_per_sm(knn_geo, K_NN, dev.index)
+    print(f"phase 1 knn launch at B={B}, Q={N_HORIZON}, P={N_PTS}, k={K_NN}: grid {knn_geo.grid} x {knn_geo.threads} "
+          f"threads, {knn_geo.queries_per_block} queries x {knn_geo.slices} slices per block, {knn_geo.splits} point "
+          f"range(s) of {knn_geo.range_points}, {knn_geo.shared_bytes} B dynamic shared memory; {knn_blocks} blocks "
+          f"({knn_blocks * knn_geo.threads // 32} warps) resident per SM, {B / (n_sm * knn_blocks):.2f} waves", flush=True)
     print(f"phase 1 device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
 
@@ -474,9 +527,13 @@ def main() -> int:
           "knn: empty slot of the <3-point scenario is not inf / FAR_SENTINEL")
     knn_bytes = B * N_HORIZON * 3 * 4 + B * N_PTS * 3 * 4 + B * N_PTS + B * N_HORIZON * K_NN * 4 * 4
     knn_ops = 8 * N_HORIZON * int(mask.sum())  # 3 sub, 3 mul, 2 add per valid (query, point)
-    knn_bound, knn_by = bound_ms(knn_bytes, knn_ops)
-    print(f"phase 2 knn: identical={same} max_abs_err={knn_err}, bound {knn_bound:.4f} ms ({knn_by}: "
-          f"{knn_bytes / 1e6:.1f} MB, {knn_ops / 1e9:.3f} GFLOP)", flush=True)
+    knn_bound, knn_by = bound_ms(knn_bytes, knn_ops, F32_INSTR_PER_S)
+    print(f"phase 2 knn: identical={same} max_abs_err={knn_err}, bound {knn_bound:.4f} ms ({knn_by}; bytes "
+          f"{bound_ms(knn_bytes, 0)[0]:.4f} ms for {knn_bytes / 1e6:.1f} MB, operations "
+          f"{bound_ms(0, knn_ops, F32_INSTR_PER_S)[0]:.4f} ms for {knn_ops / 1e9:.3f} G non-FMA instructions)",
+          flush=True)
+    edge_knn_err, knn_edge_ms = knn_edge_shapes(dev)
+    knn_err = max(knn_err, edge_knn_err)
 
     # ---- 3. SQP kernel vs plain on the flagship batch ----
     _, obstacles = knn_topk(q, pts, mask, K_NN)
@@ -570,8 +627,11 @@ def main() -> int:
     prob_in = MPCProblem(x0, ref_in.contiguous(), obs_in, target)
     knn_ms = kernel_ms(lambda: knn_topk(q_in, pts, mask, K_NN), "knn_topk_kernel", reps=20)
     knn_plain_ms = cuda_ms(lambda: knn_plain(q_in, pts, mask, K_NN), reps=5)
-    knn_lib_ms = cuda_ms(lambda: torch.topk(torch.cdist(q_in, pts, compute_mode="donot_use_mm_for_euclid_dist"),
-                                            K_NN, dim=-1, largest=False), reps=5, warmup=1)
+    cdist_in = torch.cdist(q_in, pts, compute_mode="donot_use_mm_for_euclid_dist")
+    knn_cdist_ms = cuda_ms(lambda: torch.cdist(q_in, pts, compute_mode="donot_use_mm_for_euclid_dist"), reps=5)
+    knn_topk_lib_ms = cuda_ms(lambda: torch.topk(cdist_in, K_NN, dim=-1, largest=False), reps=5)
+    knn_lib_ms = knn_cdist_ms + knn_topk_lib_ms
+    del cdist_in
     sqp_ms = kernel_ms(lambda: sqp_solve(prob_in, us_in, sp, hp), "sqp_solve_kernel", reps=10)
     sqp_call_ms = cuda_ms(lambda: sqp_solve(prob_in, us_in, sp, hp), reps=10, warmup=2)
     r_k = sqp_solve(prob_in, us_in, sp, hp)
@@ -590,7 +650,8 @@ def main() -> int:
     sqp_bound, sqp_by = bound_ms(sqp_bytes, sqp_ops)
     other = p50 - knn_ms - sqp_ms
     print(f"phase 5 kernels at the main path's inputs (device time of the kernel, profiler): knn {knn_ms:.4f} ms "
-          f"(plain {knn_plain_ms:.3f}, cdist+topk {knn_lib_ms:.3f}, bound {knn_bound:.4f} {knn_by}); sqp {sqp_ms:.3f} ms "
+          f"(plain {knn_plain_ms:.3f}, cdist {knn_cdist_ms:.3f} + topk {knn_topk_lib_ms:.3f}, bound {knn_bound:.4f} "
+          f"{knn_by}, ratio {knn_ms / knn_bound:.2f}x); sqp {sqp_ms:.3f} ms "
           f"(one sqp_solve call back to back, CUDA events: {sqp_call_ms:.3f} ms; plain {sqp_plain_ms:.1f}, bound "
           f"{sqp_bound:.4f} {sqp_by}: {sqp_ops / 1e9:.3f} GFLOP, mean updates {float(r_k.iterations.float().mean()):.3f}, "
           f"both-converged {int(both.sum())}/{B} max|dus| {du_m:.3e}); tick p50 {p50:.3f} = knn {knn_ms:.3f} + sqp "
@@ -767,7 +828,9 @@ def main() -> int:
          "replaces": "avoid_mpc_tpu/ops/pallas_knn.py:113", "launches": launches["knn_topk"],
          "max_abs_err": knn_err, "ms": knn_ms, "plain_ms": knn_plain_ms, "bound_ms": knn_bound,
          "bound_by": knn_by, "library_ms": knn_lib_ms,
-         "library_call": "torch.cdist(donot_use_mm_for_euclid_dist)+torch.topk, two calls, mask not applied"},
+         "library_call": "torch.cdist(donot_use_mm_for_euclid_dist)+torch.topk, two calls, mask not applied",
+         "library_parts_ms": {"cdist": knn_cdist_ms, "topk": knn_topk_lib_ms},
+         "ms_at": {"dedupe": knn_edge_ms["dedupe"], "rescue": knn_edge_ms["rescue"]}},
         {"name": "sqp_solve", "route": "cuda", "source": "avoid_mpc_torch/csrc/sqp.cu",
          "replaces": "avoid_mpc_tpu/solver/pallas_sqp.py:753", "launches": launches["sqp_solve"],
          "max_abs_err": sqp_err, "ms": sqp_ms, "plain_ms": sqp_plain_ms, "bound_ms": sqp_bound,
