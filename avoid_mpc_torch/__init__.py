@@ -7,7 +7,10 @@ kernels: ``csrc/knn.cu`` for the association, then either the fused solve
 solve (``fuse=False``): torch linearization, the Riccati-sweep kernel
 ``csrc/backward.cu`` and the line-search kernel ``csrc/forward.cu`` per
 iteration.  ``tools/op_microbench.py`` times single ops on the card
-(``csrc/op_chain.cu``).  Every kernel has a plain PyTorch twin in the module
+(``csrc/op_chain.cu``).  The receding-horizon engine tick
+(``engine/receding.py``) runs the k-NN and fused SQP kernels over the
+rolling keyframe map (``mapping/rolling_map.py``), fed by the depth ops
+(``ops/depth.py``).  Every kernel has a plain PyTorch twin in the module
 of its wrapper or in ``solver/ilqr.py``; a CPU tensor takes the twin, a
 CUDA tensor takes the kernel.
 

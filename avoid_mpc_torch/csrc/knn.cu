@@ -13,7 +13,11 @@
 //   distance inf and coordinates FAR_SENTINEL.
 //
 // Layout: queries (B,Q,3), points (B,P,3), mask (B,P) uint8, all f32 /
-// contiguous; outputs dists (B,Q,k) = sqrt(d2), pts (B,Q,k,3).
+// contiguous; outputs dists (B,Q,k) = sqrt(d2), pts (B,Q,k,3).  k is a
+// template parameter, instantiated for 1, 2, 3, 4 (the associations, the
+// edge warm start, the dedupe) and 10 (the rolling map's prune, which asks
+// for the 10 nearest points of every keyframe); the lists stay in
+// registers at k = 10 as well (ptxas reports no spill).
 //
 // Design.  The geometry comes from ops/knn_cuda.py::launch_geometry.  A block
 // owns one scenario, a tile of `qpb` queries and one of `splits` ranges of at
@@ -344,6 +348,7 @@ static knn_kernel_t knn_kernel_for(int k) {
     case 2: return knn_topk_kernel<2>;
     case 3: return knn_topk_kernel<3>;
     case 4: return knn_topk_kernel<4>;
+    case 10: return knn_topk_kernel<10>;
     default: return nullptr;
   }
 }

@@ -50,7 +50,11 @@ class DynamicsParams(NamedTuple):
 
 
 def _gravity_vec(like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor([0.0, 0.0, GRAVITY], dtype=like.dtype, device=like.device)
+    """[0, 0, g] made on ``like``'s device, with no host-to-device copy (a
+    copy from pageable host memory would synchronise the host with the
+    stream)."""
+    return torch.cat([torch.zeros(2, dtype=like.dtype, device=like.device),
+                      torch.full((1,), GRAVITY, dtype=like.dtype, device=like.device)])
 
 
 def _acc_to_rotmat(acc: torch.Tensor, yaw: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,9 @@ use the difference form ((px-qx)^2 + (py-qy)^2) + (pz-qz)^2, never the
 distances at world scale.
 
 :func:`knn` routes a CUDA float32 call to the kernel (``ops/knn_cuda.py``)
-and a CPU call to :func:`knn_plain`.
+and a CPU call to :func:`knn_plain`.  :func:`knn_culled` first culls a
+single scenario's cloud to the queries' bounding box (:func:`cull_by_bbox`),
+the sub-linear association for big maps.
 """
 
 from __future__ import annotations
@@ -130,6 +132,54 @@ def knn(queries, points, mask, k: int):
     from avoid_mpc_torch.ops.knn_cuda import knn_topk  # imports this module
 
     return knn_topk(queries, points, mask, k)
+
+
+def cull_by_bbox(queries, points, mask, r_cut: float, m_max: int):
+    """Compact each scenario's points within ``r_cut`` (L-inf) of its
+    queries' bounding box into a fixed (m_max, 3) candidate set, in point
+    order: cumsum of the in-box flags, ``searchsorted`` of 1..m_max into it,
+    a gather at the found indices clamped at P-1.  No scatter, sort or host
+    synchronisation.
+
+    Every point within L2 distance r_cut of a query is inside the box, so a
+    k-NN over the candidates is exact for every neighbour within r_cut.
+    queries (B,Q,3), points (B,P,3), mask (B,P) -> cand_pts (B,m_max,3),
+    cand_mask (B,m_max), overflow (B,): more than m_max points in the box
+    (the candidates are then the first m_max of them)."""
+    p = points.shape[-2]
+    lo = torch.amin(queries, dim=-2, keepdim=True) - r_cut
+    hi = torch.amax(queries, dim=-2, keepdim=True) + r_cut
+    inbox = torch.all((points >= lo) & (points <= hi), dim=-1) & mask
+    cs = torch.cumsum(inbox.to(torch.int64), dim=-1)
+    count = cs[..., -1]
+    want = torch.arange(1, m_max + 1, dtype=cs.dtype, device=cs.device).expand(cs.shape[:-1] + (m_max,))
+    sel = torch.searchsorted(cs, want.contiguous()).clamp_max(p - 1)  # first index with cs > j
+    cand_mask = torch.arange(m_max, device=cs.device) < count[..., None]
+    cand_pts = torch.gather(points, -2, sel[..., None].expand(sel.shape + (3,)))
+    return cand_pts, cand_mask, count > m_max
+
+
+def knn_culled(queries, points, mask, k: int, r_cut: float, m_max: int):
+    """k-NN through the bbox cull, batch-first: exact (equal to :func:`knn`)
+    for every neighbour within ``r_cut`` of its query; farther slots may
+    report inf / FAR_SENTINEL.  Returns (dists, pts, overflow (B,)).
+
+    The batch rule, the JAX package's vmap rule: with a batch axis larger
+    than 1, or a cloud of at most 2 m_max points, every scenario takes the
+    brute-force :func:`knn` and ``overflow`` is False.  A batch of one
+    (the single-robot path) takes the cull: the k-NN over the candidates
+    and the brute-force rescue over the whole cloud are both computed and
+    ``torch.where`` keeps the rescue where the candidates overflowed, so no
+    branch waits on the device."""
+    b, p = points.shape[0], points.shape[-2]
+    if b > 1 or p <= 2 * m_max:
+        d, pts = knn(queries, points, mask, k)
+        return d, pts, torch.zeros(b, dtype=torch.bool, device=points.device)
+    cand_pts, cand_mask, overflow = cull_by_bbox(queries, points, mask, r_cut, m_max)
+    d_c, p_c = knn(queries, cand_pts, cand_mask, k)
+    d_b, p_b = knn(queries, points, mask, k)
+    ovf = overflow[:, None, None]
+    return torch.where(ovf, d_b, d_c), torch.where(ovf[..., None], p_b, p_c), overflow
 
 
 def nearest_distance(query, points, mask):

@@ -30,7 +30,9 @@ import torch
 from avoid_mpc_torch import cuda_build
 from avoid_mpc_torch.ops.knn import FAR_SENTINEL, _sqrt_rn, knn_plain
 
-_K_SUPPORTED = (1, 2, 3, 4)
+# the kernel's template instances (csrc/knn.cu::knn_kernel_for): the
+# associations and warm starts (1..4) and the rolling map's prune (10)
+_K_SUPPORTED = (1, 2, 3, 4, 10)
 MAX_THREADS = 128  # KNN_MAX_THREADS in csrc/knn.cu
 MAX_RANGE = 2048  # KNN_MAX_RANGE: points a block stages (16 B each)
 MAX_QUERIES_PER_BLOCK = 64

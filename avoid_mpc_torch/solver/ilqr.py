@@ -31,6 +31,7 @@ drag path belongs to a later slice.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -90,10 +91,10 @@ class SolverHyper(NamedTuple):
     reg_min: float = 1e-9
     reg_max: float = 1e6
     grad_tol: float = 1e-4  # convergence threshold on the projected gradient
-    # Exit the fused kernel's loop at grad_tol.  The CUDA kernel runs one
-    # scenario per thread, so its exit is per scenario and True / False are
-    # the same computation; the plain solve never exits early (as the XLA
-    # solve).  Kept for the JAX interface.
+    # Exit the fused kernel's loop at grad_tol.  The CUDA kernel runs a
+    # group of 16 lanes per scenario and each group exits on its own, so
+    # True / False are the same computation; the plain solve never exits
+    # early (as the XLA solve).  Kept for the JAX interface.
     tol_exit: bool = True
     # Run the whole solve as one kernel on CUDA.  False selects the
     # per-phase loop: linearize, sweep kernel, line-search kernel.
@@ -119,6 +120,20 @@ class SolveResult(NamedTuple):
     converged: torch.Tensor  # (B,) bool: grad_norm < grad_tol
     reg: torch.Tensor  # (B,) final regularization
     iterations: torch.Tensor  # (B,) int32 updates run (the kernel stops at grad_tol)
+
+
+@contextlib.contextmanager
+def f32_matmul_highest():
+    """Run float32 matmuls and einsums in full float32 (no TF32) inside the
+    block, whatever the caller set, and restore the caller's setting after
+    it: the port's counterpart of the JAX solve's
+    ``jax.default_matmul_precision("highest")``."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 def _affine_dynamics(sp: SolverParams, dtype):
@@ -370,8 +385,10 @@ def solve_plain(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper
     Runs the XLA ``solve`` schedule: ``iters`` updates, then the certificate
     pass; ``grad_tol`` is only reported.  This is the plain twin of the
     fused CUDA kernel, which runs the same steps per scenario but stops a
-    scenario's updates after the iteration whose sweep certified it."""
-    return _solve_loop(problems, us_init, sp, hp, riccati_backward_plain, line_search_plain)
+    scenario's updates after the iteration whose sweep certified it.
+    Float32 matmuls run in full float32 (:func:`f32_matmul_highest`)."""
+    with f32_matmul_highest():
+        return _solve_loop(problems, us_init, sp, hp, riccati_backward_plain, line_search_plain)
 
 
 def solve_phased(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper = SolverHyper()):
@@ -379,11 +396,13 @@ def solve_phased(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHype
     :func:`solve_plain` with the sweep and the line search going through
     their kernel wrappers, 2 iters + 1 launches per solve.  CUDA float32
     launches the kernels, CPU runs their plain twins (and so equals
-    :func:`solve_plain`), anything else raises."""
+    :func:`solve_plain`), anything else raises.  Float32 matmuls run in
+    full float32 (:func:`f32_matmul_highest`)."""
     from avoid_mpc_torch.solver.backward_cuda import riccati_backward  # imports this module
     from avoid_mpc_torch.solver.forward_cuda import line_search
 
-    return _solve_loop(problems, us_init, sp, hp, riccati_backward, line_search)
+    with f32_matmul_highest():
+        return _solve_loop(problems, us_init, sp, hp, riccati_backward, line_search)
 
 
 def solve_batched(
@@ -393,12 +412,14 @@ def solve_batched(
     ``us_init`` carries a leading scenario axis.  ``hp.fuse`` (default)
     runs through ``solver/sqp_cuda.sqp_solve`` (CUDA float32 launches the
     fused kernel, CPU runs :func:`solve_plain`); ``fuse=False`` runs
-    :func:`solve_phased`.  Anything else than CUDA float32 or CPU raises."""
+    :func:`solve_phased`.  Anything else than CUDA float32 or CPU raises.
+    Float32 matmuls run in full float32 (:func:`f32_matmul_highest`)."""
     if not hp.fuse:
         return solve_phased(problems, us_init, sp, hp)
     from avoid_mpc_torch.solver.sqp_cuda import sqp_solve  # imports this module
 
-    return sqp_solve(problems, us_init, sp, hp)
+    with f32_matmul_highest():
+        return sqp_solve(problems, us_init, sp, hp)
 
 
 def solve(problem: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper = SolverHyper()) -> SolveResult:

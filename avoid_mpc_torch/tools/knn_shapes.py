@@ -3,9 +3,10 @@ device times, for one checkout or for two checkouts run alternately.
 
     python -m avoid_mpc_torch.tools.knn_shapes [--against DIR]
 
-``EDGE_CASES`` are the shapes at which ``chip_smoke.py`` phase 2 holds
-``knn_topk`` equal to ``knn_plain`` (``torch.equal`` on distances and
-coordinates); :func:`make_inputs` builds each from a seed on the device.
+``EDGE_CASES`` and ``ENGINE_SHAPES`` (the engine tick's and the rolling
+map's) are the shapes at which ``chip_smoke.py`` phase 2 holds ``knn_topk``
+equal to ``knn_plain`` (``torch.equal`` on distances and coordinates);
+:func:`make_inputs` builds each from a seed on the device.
 ``TIMED`` are the shapes the callers run: the flagship association (B=4096,
 Q=20, P=1024, k=3, ``step.build_problem_batch``'s forest clouds), the
 rolling map's dedupe (B=1, a 64 x 48 frame against as many map points,
@@ -54,6 +55,18 @@ EDGE_CASES = {
     "dedupe": (1, FRAME, FRAME, 1, "frame"),
     "rescue": (1, 30, MAP_POINTS, 3, "masked"),
     "rescue lattice ties": (1, 30, MAP_POINTS, 3, "lattice"),
+}
+# The engine tick's shapes (B, Q, P, k, inputs): the forest_10k association
+# and edge warm start over (4 + 1) x 2,560 map points, the single-robot map
+# prune (100 keyframe slots, one query each, k=10) and the single-robot edge
+# warm start and brute-force rescue over (100 + 1) x 3,072 map points.
+ENGINE_SHAPES = {
+    "forest_10k association": (1024, 30, 5 * 2560, 3, "masked"),
+    "forest_10k edge warm start": (1024, 1, 5 * 2560, 1, "masked"),
+    "map prune k=10": (100, 1, FRAME, 10, "masked"),
+    "map prune k=10 lattice ties": (100, 1, FRAME, 10, "lattice"),
+    "single-robot edge warm start": (1, 1, MAP_POINTS + FRAME, 1, "masked"),
+    "single-robot rescue": (1, 30, MAP_POINTS + FRAME, 3, "masked"),
 }
 TIMED = {
     "flagship": (4096, 20, 1024, 3, "forest"),

@@ -24,7 +24,10 @@ ticks, once with the fused solve and once with the per-phase solve
    identity at every ``tools/knn_shapes.EDGE_CASES`` shape (B 1 / 4097,
    Q 1 / 30, k 1 / 2 / 4, P 1 / 3 / 1000, all masked, duplicated and
    lattice ties, ``assoc_m_max``, the dedupe and the brute-force rescue),
-   and the kernel's time at the dedupe and rescue shapes;
+   and the kernel's time at the dedupe and rescue shapes; then identity,
+   time and bound at the engine's shapes (``tools/knn_shapes.ENGINE_SHAPES``:
+   the ``forest_10k`` association and edge warm start, the map prune at
+   k=10, the single-robot edge warm start and rescue);
 3. SQP kernel vs plain on the flagship batch: (a) iters=3, grad_tol=0:
    max|dus| <= 1e-3 and rel dcost <= 1e-4; (b) iters=10, grad_tol=1e-4,
    tol_exit True then False: max|dus| <= 1e-3 on the scenarios both
@@ -59,7 +62,25 @@ ticks, once with the fused solve and once with the per-phase solve
    busy time from ``torch.profiler``);
 10. the op microbench: kernel vs plain after 64 iterations for every op and
     mode (1e-5 relative), then cycles per warp instruction per op and mode;
-11. a ``kernels`` JSON line; the last line is the device JSON.
+11. the ``forest_10k`` engine tick (``engine/receding.receding_step``,
+    B=1024, N=30, 3 outer iterations, F=4 x P=2560 forest maps): 3 gate
+    ticks held against the port's CPU tick (first 64 scenarios, each tick
+    from the card's input state) and the JAX golden
+    (``tests/data/engine_gold.npz`` through ``tools/verify_engine.py``):
+    flags and outer_iters agree on >= 99% of (tick, scenario) pairs,
+    max|du_cmd| <= 1e-3 where the flags agree and both converged; then 10
+    chained ticks timed, 6 k-NN and 3 SQP launches per tick, the
+    profiler's busy time and idle share, finite outputs inside the control
+    box, and one tick under ``torch.cuda.set_sync_debug_mode("error")``;
+12. the single-robot tick (B=1, 640x480 depth -> ``ops/depth`` -> rolling
+    map of 100 x 3072 points with the k=10 prune and the dedupe -> the
+    engine on the culled route): each stage of 3 ticks against the CPU
+    plain run from the card's inputs, then 10 ticks timed by stage with
+    11 k-NN and 3 SQP launches per tick, beside the reference's 33 ms, and
+    one whole tick under ``set_sync_debug_mode("error")``;
+13. the TF32 gate: with ``allow_tf32`` on, the per-phase solve and the
+    engine tick equal their runs with it off and the flag is restored;
+14. a ``kernels`` JSON line; the last line is the device JSON.
 
 Kernel times (phases 5, 9, 10 and the kernels line) are the kernel's own
 device time from ``torch.profiler``'s kernel records; CUDA events around
@@ -422,7 +443,403 @@ def knn_edge_shapes(dev) -> tuple[float, dict]:
         times[name] = kernel_ms(lambda: knn_cuda.knn_topk(qs, pts, mask, k), "knn_topk_kernel", reps=20)
     print(f"phase 2 knn times (device time, profiler): dedupe {times['dedupe']:.4f} ms, rescue "
           f"{times['rescue']:.4f} ms", flush=True)
+    # the engine tick's and the rolling map's shapes: identity, time and bound
+    for name, case in knn_shapes.ENGINE_SHAPES.items():
+        same, e = knn_shapes.gate(knn_cuda.knn_topk, knn_plain, case, dev)
+        err = max(err, e)
+        check(same and e == 0.0, f"knn {name} {case[:4]}: kernel differs from plain (max abs err {e})")
+        b, q, p, k = case[:4]
+        qs, pts, mask = knn_shapes.make_inputs(case, dev)
+        ms = kernel_ms(lambda: knn_cuda.knn_topk(qs, pts, mask, k), "knn_topk_kernel", reps=20)
+        n_bytes = b * q * 3 * 4 + b * p * 3 * 4 + b * p + b * q * k * 4 * 4
+        bound, by = bound_ms(n_bytes, 8 * q * int(mask.sum()), F32_INSTR_PER_S)
+        geo = knn_cuda.launch_geometry(b, q, p, k)
+        if not case[4].startswith("lattice"):
+            times[name] = ms
+        print(f"phase 2 knn engine shape {name} (B, Q, P, k = {case[:4]}, {case[4]}): identical={same} max abs err "
+              f"{e}, kernel {ms:.4f} ms (device time, profiler), bound {bound:.4f} ms ({by}), ratio {ms / bound:.1f}x, "
+              f"launch {geo.grid} blocks x {geo.threads} threads, {geo.slices} slices, {geo.splits} ranges of "
+              f"{geo.range_points}, {geo.shared_bytes} B shared", flush=True)
     return err, times
+
+
+FOREST_B = 1024  # the forest_10k cell's batch
+SR_TICKS = 10  # single-robot ticks timed
+GATE_TICKS = 3  # ticks held against the references (verify_engine.TICKS_GOLD)
+ENGINE_LAUNCHES = {"forest_10k": {"knn_topk": 6, "sqp_solve": 3},  # per tick: 3 x (edge + association), 3 solves
+                   "single robot": {"knn_topk": 11, "sqp_solve": 3}}  # + prune, dedupe; culled: candidates + rescue
+
+
+def launch_counts() -> dict:
+    from avoid_mpc_torch.ops.knn_cuda import knn_topk
+    from avoid_mpc_torch.solver.backward_cuda import riccati_backward
+    from avoid_mpc_torch.solver.forward_cuda import line_search
+    from avoid_mpc_torch.solver.sqp_cuda import sqp_solve
+
+    return {"knn_topk": knn_topk.launches, "sqp_solve": sqp_solve.launches,
+            "riccati_backward": riccati_backward.launches, "line_search": line_search.launches}
+
+
+def zero_launch_counts() -> None:
+    from avoid_mpc_torch.ops.knn_cuda import knn_topk
+    from avoid_mpc_torch.solver.backward_cuda import riccati_backward
+    from avoid_mpc_torch.solver.forward_cuda import line_search
+    from avoid_mpc_torch.solver.sqp_cuda import sqp_solve
+
+    knn_topk.launches = sqp_solve.launches = riccati_backward.launches = line_search.launches = 0
+
+
+def tick_breakdown(fn, reps: int = 3) -> tuple[float, dict]:
+    """(device busy ms of one call of ``fn``, {kernel: ms per call}) for the
+    k-NN and SQP kernels, means over ``reps`` calls, profiler records."""
+    evs = _device_events(fn, reps, want=lambda evs: any("sqp_solve_kernel" in e.key for e in evs))
+    busy = sum(e.self_device_time_total for e in evs) / 1e3 / reps
+    parts = {k: sum(e.self_device_time_total for e in evs if k in e.key) / 1e3 / reps
+             for k in ("knn_topk_kernel", "sqp_solve_kernel")}
+    return busy, parts
+
+
+def host_sync(fn) -> str | None:
+    """Run ``fn`` once under ``torch.cuda.set_sync_debug_mode("error")``:
+    None if nothing in it synchronised the host with the device, else
+    where the first synchronising operation was called."""
+    import traceback
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        return None
+    except RuntimeError as e:
+        frames = [f"{Path(f.filename).name}:{f.lineno} {f.name}" for f in traceback.extract_tb(e.__traceback__)]
+        return f"{str(e).splitlines()[0]} at {' <- '.join(reversed(frames[-4:]))}"
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+def engine_gate_line(label: str, r: dict) -> None:
+    check(r["ok"], f"{label}: {r}")
+    print(f"{label}: {r['pairs']} (tick, scenario) pairs, flags agree {r['flags_agree']:.4f}, outer_iters agree "
+          f"{r['outer_iters_agree']:.4f} (gates >= 0.99), converged agree {r['converged_agree']:.4f} (gate >= 0.95; "
+          f"converged {r['converged_frac']:.4f} vs {r['ref_converged_frac']:.4f}), max|du_cmd| {r['max_du_gated']:.3e} "
+          f"on the {r['n_gated']} pairs with agreeing flags and both converged (gate 1e-3; over all pairs "
+          f"{r['max_du']:.3e}), ok={r['ok']}", flush=True)
+
+
+def control_box_ok(out, sp) -> bool:
+    """u_cmd finite and inside the control box; the slow-down command's z
+    is clipped to +-a_max_z and its yaw rate is 0."""
+    import torch
+
+    lo = sp.u_lower.expand_as(out.u_cmd).clone()
+    lo[:, 2] = torch.where(out.is_safety, lo[:, 2], -sp.u_upper[2])
+    u = out.u_cmd
+    return bool(torch.isfinite(u).all()) and bool(((u >= lo) & (u <= sp.u_upper)).all())
+
+
+def engine_forest(dev) -> dict:
+    """Phase 11: the forest_10k engine tick at full size (B=1024, N=30,
+    F=4 keyframes of P=2560 points, ``EngineConfig()`` defaults): 3 chained
+    gate ticks held against the port's CPU tick (first 64 scenarios, each
+    tick from the card's input state) and against the JAX golden (each of
+    its ticks from its own input state), then TICKS chained ticks timed
+    with their launch counts, the profiler's busy time, and one tick under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    import numpy as np
+    import torch
+
+    from avoid_mpc_torch import config, interop
+    from avoid_mpc_torch.engine.receding import EngineHyper, EngineParams, engine_init, receding_step
+    from avoid_mpc_torch.mapping.rolling_map import RollingMap
+    from avoid_mpc_torch.tools import verify_engine as ve
+
+    cfg = config.EngineConfig()
+    p, h = EngineParams.from_config(cfg, device=dev), EngineHyper.from_config(cfg)
+    t0 = time.perf_counter()
+    m = interop.rolling_map_from_numpy(RollingMap(**ve.forest_map(FOREST_B)), device=dev)
+    quad = torch.as_tensor(ve.quad_states(FOREST_B), device=dev)
+    state = engine_init(cfg, batch=FOREST_B, device=dev)
+    print(f"phase 11 forest_10k: B={FOREST_B}, N={h.n}, {h.max_outer_iters} outer iterations ({h.solver_fast.iters} "
+          f"then {h.solver.iters} solver iterations), F={m.kf_points.shape[1]}, P={m.kf_points.shape[2]}: "
+          f"{m.kf_points.shape[1] * m.kf_points.shape[2] + m.cur_points.shape[1]} map points, "
+          f"{int(m.kf_mask[:, :-1].sum() + m.cur_mask.sum()) // FOREST_B} queryable per scenario on average; "
+          f"maps built in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    states, outs = {"ref_path": [], "us_warm": []}, {f: [] for f in ve.OUT_FIELDS}
+    for _ in range(GATE_TICKS):
+        states["ref_path"].append(state.ref_path.cpu().numpy())
+        states["us_warm"].append(state.us_warm.cpu().numpy())
+        state, out = receding_step(state, quad, m, p, h)
+        for f in ve.OUT_FIELDS:
+            outs[f].append(getattr(out, f).cpu().numpy())
+    states, outs = ({k: np.stack(v) for k, v in d.items()} for d in (states, outs))
+    t0 = time.perf_counter()
+    cpu = ve.run_ticks(ve.N_GOLD, states, "cpu")
+    cpu_s = time.perf_counter() - t0
+    engine_gate_line(f"phase 11 forest_10k tick vs the port's CPU tick ({ve.N_GOLD} scenarios, {GATE_TICKS} ticks, "
+                     f"{cpu_s:.1f} s on the host)", ve.compare(outs, cpu))
+    engine_gate_line(f"phase 11 forest_10k tick vs the JAX golden ({ve.GOLDEN.name})", ve.gate(dev))
+
+    for _ in range(2):  # warm-up
+        state, out = receding_step(state, quad, m, p, h)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(TICKS + 1)]
+    ev[0].record()
+    for i in range(TICKS):
+        state_in = state
+        state, out = receding_step(state, quad, m, p, h)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = {"riccati_backward": 0, "line_search": 0, **{k: v * TICKS for k, v in ENGINE_LAUNCHES["forest_10k"].items()}}
+    check(launches == want, f"forest_10k launch counts {launches} != {want}")
+    ticks_ms = sorted(ev[i].elapsed_time(ev[i + 1]) for i in range(TICKS))
+    p50 = ticks_ms[TICKS // 2]
+    box = control_box_ok(out, p.sp)
+    fin = all(bool(torch.isfinite(t).all()) for t in (out.u_cmd, out.predicted, out.cost, state.us_warm))
+    check(box and fin, f"forest_10k outputs: finite {fin}, u_cmd inside the control box {box}")
+    busy, parts = tick_breakdown(lambda: receding_step(state_in, quad, m, p, h))
+    check(busy > 0, "the profiler saw no device activity in a forest_10k tick")
+    print(f"phase 11 forest_10k: {TICKS} chained ticks, p50 tick {p50:.3f} ms (min {ticks_ms[0]:.3f}, max "
+          f"{ticks_ms[-1]:.3f}), {FOREST_B / p50 * 1e3:.1f} scenario ticks/s, launches {launches} "
+          f"({ENGINE_LAUNCHES['forest_10k']} per tick); last tick: safe {float(out.is_safety.float().mean()):.4f}, "
+          f"need_replan {float(out.need_replan.float().mean()):.4f}, mean outer_iters "
+          f"{float(out.outer_iters.float().mean()):.3f}, converged {float(out.converged.float().mean()):.4f}, "
+          f"finite {fin}, in the box {box}", flush=True)
+    other = busy - parts["knn_topk_kernel"] - parts["sqp_solve_kernel"]
+    print(f"phase 11 forest_10k tick breakdown (device time, profiler, 3-tick mean): busy {busy:.3f} ms = knn "
+          f"{parts['knn_topk_kernel']:.4f} (6 launches) + sqp {parts['sqp_solve_kernel']:.4f} (3 launches) + other "
+          f"torch ops {other:.3f} (map clouds, 1-NN reductions, selects, affine maps); idle {p50 - busy:.3f} ms of "
+          f"the p50 (idle share {1.0 - busy / p50:.3f})", flush=True)
+
+    sync_err = host_sync(lambda: receding_step(state_in, quad, m, p, h))
+    check(sync_err is None, f"forest_10k tick synchronised with the host: {sync_err}")
+    print(f"phase 11 forest_10k: one tick under set_sync_debug_mode('error'): no host sync = {sync_err is None}",
+          flush=True)
+    return {"p50": p50, "busy": busy, "parts": parts, "launches": launches, "tick": (state_in, quad, m, p, h)}
+
+
+def synthetic_depth(pc, seed: int = 0):
+    """A seeded (H, W) depth image: background at depth_max (no return) and
+    five rectangles at 2 to 8 m."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    depth = np.full((pc.height, pc.width), pc.depth_max, np.float32)
+    for _ in range(5):
+        r0, c0 = rng.integers(0, pc.height - 80), rng.integers(0, pc.width - 80)
+        depth[r0: r0 + rng.integers(40, 200), c0: c0 + rng.integers(40, 240)] = rng.uniform(2.0, 8.0)
+    return depth
+
+
+def engine_single_robot(dev) -> dict:
+    """Phase 12: the single-robot tick at reference fidelity: a 640x480
+    depth frame -> ``process_depth_frame`` -> ``map_add_frame`` ->
+    ``map_keyframe_update`` (the k=10 prune and the dedupe) over a
+    100-keyframe map of 3,072-point frames filled from a seeded forest ->
+    ``receding_step`` on the culled route (B=1), the drone flying at 8 m/s.
+    Each stage of GATE_TICKS ticks is held against the CPU plain run from
+    the card's inputs; then SR_TICKS ticks are timed by stage."""
+    import torch
+
+    from avoid_mpc_torch import config, interop
+    from avoid_mpc_torch.engine.receding import EngineHyper, EngineParams, engine_init, receding_step
+    from avoid_mpc_torch.mapping.rolling_map import MapShape, RollingMap, map_add_frame, map_keyframe_update
+    from avoid_mpc_torch.ops.depth import CameraModel, process_depth_frame
+    from avoid_mpc_torch.tools import verify_engine as ve
+    from avoid_mpc_torch.utils.quaternion import compose_tf
+
+    pc, cfg = config.PerceptionConfig(), config.EngineConfig()
+    shape = MapShape.from_config(pc)
+    h = EngineHyper.from_config(cfg)
+    maps_np = ve.forest_map(1, shape.n_frames, shape.points_per_frame, seed=1)
+    depth_np = synthetic_depth(pc)
+    cpu = torch.device("cpu")
+    env = {d.type: (CameraModel.from_config(pc, device=d), EngineParams.from_config(cfg, device=d))
+           for d in (dev, cpu)}
+
+    def to(x, d):  # a tensor, or a tuple / NamedTuple of them, on device d
+        if isinstance(x, torch.Tensor):
+            return x.to(d)
+        vals = [to(a, d) for a in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+
+    def inputs(k, d):
+        cam, p = env[d.type]
+        x = 8.0 * cfg.mpc.con_dt * k  # the drone's x at tick k
+        Twb = torch.eye(4, device=d)[None].clone()
+        Twb[0, 0, 3], Twb[0, 2, 3] = x, 1.5
+        quad = torch.zeros((1, 10), device=d)
+        quad[0, 0], quad[0, 2], quad[0, 4] = x, 1.5, 8.0
+        depth = torch.as_tensor(depth_np, device=d)[None]
+        return cam, p, Twb, quad, depth
+
+    m = interop.rolling_map_from_numpy(RollingMap(**maps_np), device=dev)
+    state = engine_init(cfg, device=dev)
+    n_pts = m.kf_points.shape[1] * m.kf_points.shape[2] + m.cur_points.shape[1]
+    for k in range(GATE_TICKS):
+        cam, p, Twb, quad, depth = inputs(k, dev)
+        frame = process_depth_frame(depth, Twb, cam)
+        m_new = map_keyframe_update(map_add_frame(m, *frame, compose_tf(Twb, cam.Tbc)), cam.Tbc, pc.depth_min,
+                                    pc.keyframe_dist_threshold, pc.keyframe_count_threshold)
+        state_new, out = receding_step(state, quad, m_new, p, h)
+        # the same stages on the CPU, each from the card's inputs
+        cam_c, p_c, Twb_c, quad_c, depth_c = inputs(k, cpu)
+        frame_c = process_depth_frame(depth_c, Twb_c, cam_c)
+        frame_cpu = to(frame, cpu)
+        masks_eq = torch.equal(frame_c[1], frame_cpu[1]) and torch.equal(frame_c[3], frame_cpu[3])
+        d_err = max(float((frame_c[0] - frame_cpu[0]).abs().max()), float((frame_c[2] - frame_cpu[2]).abs().max()))
+        m_c = map_keyframe_update(map_add_frame(to(m, cpu), *frame_cpu, compose_tf(Twb_c, cam_c.Tbc)), cam_c.Tbc,
+                                  pc.depth_min, pc.keyframe_dist_threshold, pc.keyframe_count_threshold)
+        map_eq = all(torch.equal(a, b) for a, b in zip(m_c, to(m_new, cpu)))
+        _, out_c = receding_step(to(state, cpu), quad_c, to(m_new, cpu), p_c, h)
+        flags = all(torch.equal(getattr(out, f).cpu(), getattr(out_c, f)) for f in ("is_safety", "need_replan",
+                                                                                     "outer_iters"))
+        conv = bool(out.converged[0]) and bool(out_c.converged[0])
+        du = float((out.u_cmd.cpu() - out_c.u_cmd).abs().max())
+        conv_eq = bool(out.converged[0]) == bool(out_c.converged[0])
+        ok = masks_eq and d_err <= 1e-4 and map_eq and flags and conv_eq and (du <= 1e-3 or not conv)
+        check(ok, f"single robot tick {k}: depth masks equal {masks_eq}, points max err {d_err:.3e}, map equal "
+                  f"{map_eq}, flags and outer_iters equal {flags}, converged equal {conv_eq}, |du_cmd| {du:.3e} "
+                  f"(both converged {conv})")
+        print(f"phase 12 single robot tick {k} vs the CPU plain run: depth masks equal {masks_eq} (obstacle "
+              f"{int(frame[1].sum())}, edge {int(frame[3].sum())} points), points max err {d_err:.3e}; map after the "
+              f"update equal {map_eq} (count {int(m_new.count[0])}, head {int(m_new.head[0])}); flags and outer_iters "
+              f"equal {flags} (outer_iters {int(out.outer_iters[0])}, safe {bool(out.is_safety[0])}, need_replan "
+              f"{bool(out.need_replan[0])}); |du_cmd| {du:.3e}, converged card {bool(out.converged[0])} cpu "
+              f"{bool(out_c.converged[0])}", flush=True)
+        m, state = m_new, state_new
+
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(SR_TICKS)]
+    for k in range(SR_TICKS):
+        cam, p, Twb, quad, depth = inputs(GATE_TICKS + k, dev)
+        e = ev[k]
+        e[0].record()
+        frame = process_depth_frame(depth, Twb, cam)
+        e[1].record()
+        m = map_keyframe_update(map_add_frame(m, *frame, compose_tf(Twb, cam.Tbc)), cam.Tbc, pc.depth_min,
+                                pc.keyframe_dist_threshold, pc.keyframe_count_threshold)
+        e[2].record()
+        state, out = receding_step(state, quad, m, p, h)
+        e[3].record()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = {"riccati_backward": 0, "line_search": 0,
+            **{k: v * SR_TICKS for k, v in ENGINE_LAUNCHES["single robot"].items()}}
+
+    def whole_tick():
+        frame = process_depth_frame(depth, Twb, cam)
+        m2 = map_keyframe_update(map_add_frame(m, *frame, compose_tf(Twb, cam.Tbc)), cam.Tbc, pc.depth_min,
+                                 pc.keyframe_dist_threshold, pc.keyframe_count_threshold)
+        receding_step(state, quad, m2, p, h)
+
+    sync_err = host_sync(whole_tick)
+    check(sync_err is None, f"single-robot tick synchronised with the host: {sync_err}")
+    busy, parts = tick_breakdown(whole_tick)
+    check(launches == want, f"single robot launch counts {launches} != {want}")
+    box = control_box_ok(out, env[dev.type][1].sp)
+    check(box, "single robot u_cmd not finite or outside the control box")
+
+    def p50(i, j):
+        return sorted(ev[k][i].elapsed_time(ev[k][j]) for k in range(SR_TICKS))[SR_TICKS // 2]
+
+    t = {"depth": p50(0, 1), "map": p50(1, 2), "engine": p50(2, 3), "tick": p50(0, 3)}
+    print(f"phase 12 single robot: {SR_TICKS} ticks, p50 tick {t['tick']:.3f} ms = depth {t['depth']:.3f} + map update "
+          f"{t['map']:.3f} + engine {t['engine']:.3f} ms (each a p50 of its own, CUDA events), against the "
+          f"reference's 33 ms loop budget (bench_single_robot.py); map {n_pts} points (F={shape.n_frames}, "
+          f"P={shape.points_per_frame}), count {int(m.count[0])}; launches {launches} "
+          f"({ENGINE_LAUNCHES['single robot']} per tick); in the box {box}; one whole tick under "
+          f"set_sync_debug_mode('error'): no host sync = {sync_err is None}", flush=True)
+    print(f"phase 12 single robot tick breakdown (device time, profiler, 3-tick mean): busy {busy:.3f} ms = knn "
+          f"{parts['knn_topk_kernel']:.4f} (11 launches) + sqp {parts['sqp_solve_kernel']:.4f} (3 launches) + other "
+          f"torch ops {busy - sum(parts.values()):.3f}; idle share of the p50 tick {1.0 - busy / t['tick']:.3f}",
+          flush=True)
+    association_route(state, quad, m, p, h)
+    return {"ms": t, "launches": launches, "busy": busy, "parts": parts}
+
+
+def association_route(state, quad, m, p, h, reps: int = 10) -> None:
+    """The single robot's association route, measured: the engine tick on
+    one map and state with the cull and the rescue beside it (``h``, the
+    shipped route) against brute force alone (``assoc_radius`` 0), the two
+    alternated tick by tick; p50 by CUDA events, the profiler's busy time
+    and the k-NN launches of one tick each.  Informational: the routes'
+    results differ beyond ``assoc_radius``, so nothing is gated."""
+    import torch
+
+    from avoid_mpc_torch.engine.receding import receding_step
+
+    routes = {"culled + rescue": h, "brute force": h._replace(assoc_radius=0.0)}
+    ev = {r: [] for r in routes}
+    for _ in range(reps + 1):  # the first pair warms up
+        for r, hr in routes.items():
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            e[0].record()
+            receding_step(state, quad, m, p, hr)
+            e[1].record()
+            ev[r].append(e)
+    torch.cuda.synchronize()
+    res = {}
+    for r, hr in routes.items():
+        ms = sorted(a.elapsed_time(b) for a, b in ev[r][1:])
+        zero_launch_counts()
+        out = receding_step(state, quad, m, p, hr)[1]
+        torch.cuda.synchronize()
+        knn_n = launch_counts()["knn_topk"]
+        busy, parts = tick_breakdown(lambda hr=hr: receding_step(state, quad, m, p, hr))
+        res[r] = out
+        print(f"phase 12 association route {r}: engine tick p50 {ms[reps // 2]:.3f} ms (min {ms[0]:.3f}, max "
+              f"{ms[-1]:.3f}; {reps} ticks alternated with the other route, CUDA events), busy {busy:.3f} ms "
+              f"(knn {parts['knn_topk_kernel']:.4f}, {knn_n} k-NN launches), idle share {1.0 - busy / ms[reps // 2]:.3f}",
+              flush=True)
+    a, b = res.values()
+    print(f"phase 12 association routes agree: is_safety {torch.equal(a.is_safety, b.is_safety)}, need_replan "
+          f"{torch.equal(a.need_replan, b.need_replan)}, |du_cmd| {float((a.u_cmd - b.u_cmd).abs().max()):.3e}",
+          flush=True)
+
+
+def tf32_gate(dev, problem, us0, sp, hp, forest_tick) -> None:
+    """Phase 13: with ``torch.backends.cuda.matmul.allow_tf32`` on, the
+    per-phase solve and the engine tick equal their runs with it off (the
+    solves pin float32 matmuls), and the caller's flag is restored."""
+    import torch
+
+    from avoid_mpc_torch.engine.receding import receding_step
+    from avoid_mpc_torch.solver import ilqr
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+
+    Ad, Bd, cvec = ilqr._affine_dynamics(sp, torch.float32)
+
+    def run():
+        r = ilqr.solve_batched(problem, us0, sp, hp._replace(fuse=False))
+        _, out = receding_step(*forest_tick)
+        # unpinned, outside any solve: what TF32 would do to the solve's matmuls
+        lin = torch.cat([ilqr._linearize(problem, r.xs, r.us, sp)[0].flatten(),
+                         ilqr._rollout_lti(problem.x0, r.us, Ad, Bd, cvec).flatten()])
+        torch.cuda.synchronize()
+        return (r.us, r.xs, r.cost, out.u_cmd, out.predicted, out.cost), lin
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off, lin_off = run()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on, lin_on = run()
+        kept = torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    same = all(torch.equal(a, b) for a, b in zip(on, off))
+    check(same and kept is True, f"TF32 gate: results equal {same}, caller's TF32 flag kept {kept}")
+    print(f"phase 13 TF32 gate: per-phase solve and forest_10k tick with allow_tf32 on equal the runs with it off: "
+          f"{same}; the caller's flag is back on after the solves: {kept is True}; outside a solve, the torch "
+          f"linearization and LTI rollout differ by up to {float((lin_on - lin_off).abs().max()):.3e} under TF32; "
+          f"flag restored to {prev}", flush=True)
 
 
 def main() -> int:
@@ -474,7 +891,8 @@ def main() -> int:
         if "knn_topk_kernel" in line and "Compiling entry function" in line:
             print("phase 1 ptxas " + " | ".join(x.strip() for x in ptxas[i:i + 4] if x.strip()), flush=True)
     knn_res = [r for r in cuda_build.resources("knn") if "knn_topk_kernel" in r["kernel"]]
-    check(len(knn_res) == 4 and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in knn_res),
+    check(len(knn_res) == len(knn_cuda._K_SUPPORTED)
+          and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in knn_res),
           f"knn_topk_kernel spills or is missing from the ptxas report: {knn_res}")
     sqp_geo = sqp_cuda.launch_geometry(B, N_HORIZON, K_NN, 8)
     for mod, geo in (("sweep", backward_cuda.launch_geometry(B, N_HORIZON)),
@@ -599,7 +1017,7 @@ def main() -> int:
     for _ in range(WARMUP_TICKS):
         us, ref_c, cost, conv = step.solve_step(x0, ref_c, target, pts, mask, us, sp, hp)
     torch.cuda.synchronize()
-    knn_topk.launches = sqp_solve.launches = riccati_backward.launches = line_search.launches = 0
+    zero_launch_counts()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(TICKS + 1)]
     ev[0].record()
     for i in range(TICKS):
@@ -607,8 +1025,7 @@ def main() -> int:
         us, ref_c, cost, conv = step.solve_step(x0, ref_c, target, pts, mask, us, sp, hp)
         ev[i + 1].record()
     torch.cuda.synchronize()
-    launches = {"knn_topk": knn_topk.launches, "sqp_solve": sqp_solve.launches,
-                "riccati_backward": riccati_backward.launches, "line_search": line_search.launches}
+    launches = launch_counts()
     ticks_ms = sorted(ev[i].elapsed_time(ev[i + 1]) for i in range(TICKS))
     p50 = ticks_ms[TICKS // 2]
     conv_frac = float(conv.float().mean())
@@ -736,15 +1153,14 @@ def main() -> int:
     for _ in range(WARMUP_TICKS):
         us_f, ref_f, cost_f, conv_f = step.solve_step(x0, ref_f, target, pts, mask, us_f, sp_f, hp_f)
     torch.cuda.synchronize()
-    knn_topk.launches = sqp_solve.launches = riccati_backward.launches = line_search.launches = 0
+    zero_launch_counts()
     ev[0].record()
     for i in range(TICKS):
         us_fin, ref_fin = us_f, ref_f
         us_f, ref_f, cost_f, conv_f = step.solve_step(x0, ref_f, target, pts, mask, us_f, sp_f, hp_f)
         ev[i + 1].record()
     torch.cuda.synchronize()
-    launches_f = {"knn_topk": knn_topk.launches, "sqp_solve": sqp_solve.launches,
-                  "riccati_backward": riccati_backward.launches, "line_search": line_search.launches}
+    launches_f = launch_counts()
     want_f = {"knn_topk": TICKS, "sqp_solve": 0, "riccati_backward": TICKS * (hp_f.iters + 1),
               "line_search": TICKS * hp_f.iters}
     check(launches_f == want_f, f"per-phase launch counts {launches_f} != {want_f}")
@@ -822,7 +1238,16 @@ def main() -> int:
     print(f"phase 10 microbench launch {mb_op} {mb_mode} n_iter={mb_n}: kernel {mb_ms:.4f} ms, plain {mb_plain_ms:.1f} "
           f"ms, bound {mb_bound:.6f} ms ({mb_by}; 32 one-warp blocks use 32 of the 132 SMs by design)", flush=True)
 
-    # ---- 11. kernels ----
+    # ---- 11. the forest_10k engine tick ----
+    forest = engine_forest(dev)
+
+    # ---- 12. the single-robot tick ----
+    single = engine_single_robot(dev)
+
+    # ---- 13. TF32 ----
+    tf32_gate(dev, problem, us0, sp, hp, forest["tick"])
+
+    # ---- 14. kernels ----
     kernels = [
         {"name": "knn_topk", "route": "cuda", "source": "avoid_mpc_torch/csrc/knn.cu",
          "replaces": "avoid_mpc_tpu/ops/pallas_knn.py:113", "launches": launches["knn_topk"],
@@ -830,11 +1255,16 @@ def main() -> int:
          "bound_by": knn_by, "library_ms": knn_lib_ms,
          "library_call": "torch.cdist(donot_use_mm_for_euclid_dist)+torch.topk, two calls, mask not applied",
          "library_parts_ms": {"cdist": knn_cdist_ms, "topk": knn_topk_lib_ms},
-         "ms_at": {"dedupe": knn_edge_ms["dedupe"], "rescue": knn_edge_ms["rescue"]}},
+         "ms_at": knn_edge_ms,
+         "launches_per_tick": {"flagship": launches["knn_topk"] // TICKS, "forest_10k": forest["launches"]["knn_topk"] // TICKS,
+                               "single robot": single["launches"]["knn_topk"] // SR_TICKS}},
         {"name": "sqp_solve", "route": "cuda", "source": "avoid_mpc_torch/csrc/sqp.cu",
          "replaces": "avoid_mpc_tpu/solver/pallas_sqp.py:753", "launches": launches["sqp_solve"],
          "max_abs_err": sqp_err, "ms": sqp_ms, "plain_ms": sqp_plain_ms, "bound_ms": sqp_bound,
-         "bound_by": sqp_by, "library_ms": None},
+         "bound_by": sqp_by, "library_ms": None,
+         "ms_at": {"forest_10k tick (3 launches)": forest["parts"]["sqp_solve_kernel"]},
+         "launches_per_tick": {"flagship": launches["sqp_solve"] // TICKS, "forest_10k": forest["launches"]["sqp_solve"] // TICKS,
+                               "single robot": single["launches"]["sqp_solve"] // SR_TICKS}},
         {"name": "riccati_backward", "route": "cuda", "source": "avoid_mpc_torch/csrc/backward.cu",
          "replaces": "avoid_mpc_tpu/solver/pallas_backward.py:288", "launches": launches_f["riccati_backward"],
          "max_abs_err": bw_err, "ms": bw_ms, "plain_ms": bw_plain_ms, "bound_ms": bw_bound, "bound_by": bw_by,

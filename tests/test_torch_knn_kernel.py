@@ -79,7 +79,7 @@ def test_ranges_and_slices_partition_the_points(b, q, p):
     np.testing.assert_array_equal(seen, np.ones(p, dtype=np.int64))
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 10])
 @pytest.mark.parametrize("q", [1, 20, 30, 3072])
 def test_shared_memory_within_the_block_limit(q, k):
     for p in list(range(0, RESCUE_P + 1, 997)) + [RESCUE_P, 2048, 2049, 4096]:
@@ -159,6 +159,9 @@ def _ties_across(points, mask, queries, owner):
 # range boundaries.
 ORDER_CASES = {
     "default": (2, 20, 100, 3, {}),
+    "k=10 one query ranges": (3, 1, 150, 10, {"splits": 3, "range_points": 50}),
+    "k=10 slices x ranges": (2, 7, 160, 10, {"slices": 4, "splits": 4, "range_points": 40}),
+    "k=10 default": (2, 20, 100, 10, {}),
     "slices x ranges": (2, 20, 100, 3, {"splits": 7, "range_points": 16}),
     "ranges k=4": (1, 7, 120, 4, {"slices": 3, "splits": 4, "range_points": 30}),
     "k=1 ranges": (2, 5, 90, 1, {"slices": 2, "splits": 3, "range_points": 30}),
@@ -179,6 +182,49 @@ def test_kernel_order_model_equals_plain_on_ties(case):
         assert _ties_across(points, mask, queries, idx // geo.range_points)
     d_m, p_m = knn_cuda.kernel_order_model(queries, points, mask, k, geo)
     d_p, p_p = knn_plain(queries, points, mask, k)
+    assert torch.equal(d_m, d_p) and torch.equal(p_m, p_p)
+
+
+# The engine tick's and the map's k-NN shapes: tools/knn_shapes.ENGINE_SHAPES
+# and the two single-robot shapes phase 2 already gates.
+ENGINE_KNN = {**{n: c[:4] for n, c in knn_shapes.ENGINE_SHAPES.items()},
+              "dedupe": (1, 3072, 3072, 1), "culled association": (1, 30, 8192, 3)}
+
+
+@pytest.mark.parametrize("name", list(ENGINE_KNN))
+def test_engine_shapes_launch(name):
+    """The engine tick's and the map's shapes: every query served once, the
+    ranges cover the points, the card filled as far as ranges of at least
+    ``MIN_RANGE`` points allow."""
+    b, q, p, k = ENGINE_KNN[name]
+    geo = knn_cuda.launch_geometry(b, q, p, k)
+    assert geo.shared_bytes == knn_cuda.shared_bytes(geo.threads, geo.queries_per_block, k, geo.range_points)
+    assert 0 < geo.shared_bytes <= 48 * 1024 and geo.range_points <= knn_cuda.MAX_RANGE
+    assert geo.threads <= knn_cuda.MAX_THREADS
+    assert geo.range_points * geo.splits >= p > geo.range_points * (geo.splits - 1)
+    tiles = b * -(-q // geo.queries_per_block)
+    assert geo.grid == tiles * geo.splits >= min(H100_SMS, tiles * max(1, p // knn_cuda.MIN_RANGE))
+    served = _queries_of_tiles(b, q, geo)
+    np.testing.assert_array_equal(served, np.arange(q))
+
+
+def test_map_prune_launch_folds_ranges():
+    """Q=1: 16 slices of one query per 32-thread block, the points split in
+    3 ranges whose last block folds them (the workspace holds 10 entries
+    of each range)."""
+    geo = knn_cuda.launch_geometry(100, 1, 3072, 10)
+    assert (geo.grid, geo.threads, geo.queries_per_block, geo.slices, geo.splits) == (300, 32, 1, 16, 3)
+    assert geo.range_points == 1024 and geo.shared_bytes == 16 * 1024
+
+
+@pytest.mark.parametrize("kind", ["masked", "lattice", "duplicated"])
+def test_k10_order_model_at_the_prune_layout(kind):
+    """The prune's layout (one query, 16 slices, ranges folded by the last
+    block) at a small P, on tie-heavy inputs, equals knn_plain."""
+    queries, points, mask = knn_shapes.make_inputs((6, 1, 96, 10, kind), torch.device("cpu"), seed=5)
+    geo = knn_cuda.launch_geometry(6, 1, 96, 10)._replace(splits=3, range_points=32)
+    d_m, p_m = knn_cuda.kernel_order_model(queries, points, mask, 10, geo)
+    d_p, p_p = knn_plain(queries, points, mask, 10)
     assert torch.equal(d_m, d_p) and torch.equal(p_m, p_p)
 
 

@@ -14,7 +14,9 @@ own).
 - at B=4096 every kernel puts at least 8x the 4,096 threads of one thread
   per scenario in flight;
 - the SQP kernel's launch at the flagship and at ``configs/default.yaml``'s
-  horizon, and the constants it shares with ``csrc/sqp.cu``.
+  horizon, and the constants it shares with ``csrc/sqp.cu``;
+- the engine tick's SQP launches (``forest_10k`` and the single robot)
+  within the shared-memory limit.
 """
 
 import re
@@ -150,3 +152,17 @@ def test_sqp_layout_constants_match_the_source():
     assert int(defines["SLOT"]) == sqp_cuda.SLOT
     assert int(defines["O_LIN"]) == sqp_cuda._FIXED
     assert sqp_cuda.COLS == 10 * sqp_cuda.LANES
+
+
+# The engine tick's SQP launches (configs/default.yaml: N=30, K=3, 8
+# alphas), three a tick, for the forest_10k batch and the single robot; its
+# k-NN launches are in tests/test_torch_knn_kernel.py.
+ENGINE_SQP = {"forest_10k": (1024, 256), "single robot": (1, 1)}
+
+
+@pytest.mark.parametrize("name", list(ENGINE_SQP))
+def test_engine_sqp_launch(name):
+    b, grid = ENGINE_SQP[name]
+    geo = sqp_cuda.launch_geometry(b, DEFAULT_N, 3, 8)
+    assert (geo.grid, geo.threads, geo.scenarios_per_block) == (grid, 64, 4)
+    assert geo.shared_bytes == 4 * (160 + 4 * 2340) <= MAX_SHARED
