@@ -20,3 +20,13 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "available; pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+def kernel_route(t) -> bool:
+    """The reference's routing by dtype (``avoid_mpc_tpu/ops/knn.py:94-99``,
+    ``solver/ilqr.py:408-414``): a float32 call on the accelerator runs the
+    hand-written kernel; any other dtype, or the CPU, runs the plain twin.
+    The dispatchers (``ops/knn.knn``, ``solver/ilqr.solve_batched`` and
+    ``solve_phased``) decide by this; the kernel wrappers themselves take
+    CUDA float32 only."""
+    return bool(t.is_cuda) and t.dtype == torch.float32

@@ -9,7 +9,7 @@ use the difference form ((px-qx)^2 + (py-qy)^2) + (pz-qz)^2, never the
 distances at world scale.
 
 :func:`knn` routes a CUDA float32 call to the kernel (``ops/knn_cuda.py``)
-and a CPU call to :func:`knn_plain`.  :func:`knn_culled` first culls a
+and a CPU or non-float32 call to :func:`knn_plain`.  :func:`knn_culled` first culls a
 single scenario's cloud to the queries' bounding box (:func:`cull_by_bbox`),
 the sub-linear association for big maps.
 """
@@ -17,6 +17,8 @@ the sub-linear association for big maps.
 from __future__ import annotations
 
 import torch
+
+from avoid_mpc_torch.device import kernel_route
 
 # Coordinates reported for "no obstacle found" (the reference's padding
 # point); adds exactly zero collision cost.
@@ -126,9 +128,12 @@ def knn_plain(queries, points, mask, k: int):
 
 
 def knn(queries, points, mask, k: int):
-    """Top-k nearest valid points for each query, batch-first, through
-    ``ops/knn_cuda.knn_topk``: a CUDA float32 call launches the kernel, a
-    CPU call runs :func:`knn_plain`, other CUDA dtypes raise."""
+    """Top-k nearest valid points for each query, batch-first: a CUDA
+    float32 call launches the kernel (``ops/knn_cuda.knn_topk``); a CPU
+    call, or a CUDA call in another dtype, runs :func:`knn_plain`, as the
+    reference routes by dtype (``device.kernel_route``)."""
+    if not kernel_route(queries):
+        return knn_plain(queries, points, mask, k)
     from avoid_mpc_torch.ops.knn_cuda import knn_topk  # imports this module
 
     return knn_topk(queries, points, mask, k)

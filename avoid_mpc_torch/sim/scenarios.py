@@ -37,7 +37,9 @@ def _uniform(shape, lo, hi, generator, dtype):
 def random_forest(generator: torch.Generator, cfg: ScenarioConfig, batch: int,
                   dtype=torch.float32) -> ObstacleField:
     """``batch`` random cylinder forests.  Cylinders inside the start
-    clearing are masked out rather than resampled (static shapes)."""
+    clearing are masked out rather than resampled (static shapes).  The
+    sphere slots (``n_spheres``, at least one) are all masked off, as the
+    JAX package's."""
     n = cfg.n_cylinders
     xy = torch.stack(
         [
@@ -48,7 +50,9 @@ def random_forest(generator: torch.Generator, cfg: ScenarioConfig, batch: int,
     )
     r = _uniform((batch, n), *cfg.radius_range, generator, dtype)
     clear = torch.linalg.norm(xy, dim=-1) > (cfg.min_clear_radius + r)
-    return ObstacleField(cyl_xy=xy, cyl_r=r, cyl_mask=clear)
+    field = ObstacleField.empty(n_cyl=n, n_sph=max(cfg.n_spheres, 1), batch=batch, dtype=dtype,
+                                device=generator.device)
+    return field._replace(cyl_xy=xy, cyl_r=r, cyl_mask=clear)
 
 
 def random_start_states(generator: torch.Generator, cfg: ScenarioConfig, batch: int,

@@ -25,8 +25,9 @@ the whole solve as one CUDA kernel; ``fuse=False`` runs the per-phase loop
 (:func:`solve_phased`): torch linearization, then the Riccati-sweep kernel
 (``solver/backward_cuda.py``) and the line-search kernel
 (``solver/forward_cuda.py``) per iteration.  A CUDA float32 call launches
-the kernels, a CPU call runs the plain twins, anything else raises.  The
-drag path belongs to a later slice.
+the kernels; a CPU call, or a CUDA call in another dtype, runs the plain
+twins (the reference's routing by dtype).  The drag path belongs to a
+later slice.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from typing import NamedTuple
 import torch
 
 from avoid_mpc_torch.config import CONTROL_DIM, GRAVITY, STATE_DIM, MPCConfig
-from avoid_mpc_torch.device import resolve_device
+from avoid_mpc_torch.device import kernel_route, resolve_device
 from avoid_mpc_torch.models.costs import (
     CostParams,
     collision_quadratics,
@@ -395,9 +396,12 @@ def solve_phased(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHype
     """The per-phase batched solve (``SolverHyper.fuse=False``): the loop of
     :func:`solve_plain` with the sweep and the line search going through
     their kernel wrappers, 2 iters + 1 launches per solve.  CUDA float32
-    launches the kernels, CPU runs their plain twins (and so equals
-    :func:`solve_plain`), anything else raises.  Float32 matmuls run in
-    full float32 (:func:`f32_matmul_highest`)."""
+    launches the kernels; the CPU, or another dtype on CUDA, runs
+    :func:`solve_plain` (the reference's routing by dtype,
+    ``device.kernel_route``).  Float32 matmuls run in full float32
+    (:func:`f32_matmul_highest`)."""
+    if not kernel_route(us_init):
+        return solve_plain(problems, us_init, sp, hp)
     from avoid_mpc_torch.solver.backward_cuda import riccati_backward  # imports this module
     from avoid_mpc_torch.solver.forward_cuda import line_search
 
@@ -411,9 +415,12 @@ def solve_batched(
     """Batch of independent MPC solves; every field of ``problems`` and
     ``us_init`` carries a leading scenario axis.  ``hp.fuse`` (default)
     runs through ``solver/sqp_cuda.sqp_solve`` (CUDA float32 launches the
-    fused kernel, CPU runs :func:`solve_plain`); ``fuse=False`` runs
-    :func:`solve_phased`.  Anything else than CUDA float32 or CPU raises.
-    Float32 matmuls run in full float32 (:func:`f32_matmul_highest`)."""
+    fused kernel); ``fuse=False`` runs :func:`solve_phased`.  The CPU, or
+    another dtype on CUDA, runs :func:`solve_plain`, as the reference
+    routes by dtype (``device.kernel_route``).  Float32 matmuls run in
+    full float32 (:func:`f32_matmul_highest`)."""
+    if not kernel_route(us_init):
+        return solve_plain(problems, us_init, sp, hp)
     if not hp.fuse:
         return solve_phased(problems, us_init, sp, hp)
     from avoid_mpc_torch.solver.sqp_cuda import sqp_solve  # imports this module

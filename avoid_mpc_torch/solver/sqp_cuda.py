@@ -28,6 +28,7 @@ only their own lanes, so each scenario stops at its own update.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -182,10 +183,33 @@ def sqp_solve(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper =
     if err != 0:
         raise RuntimeError(f"sqp_solve: kernel launch failed with CUDA error {err}")
     sqp_solve.launches += 1
+    if _update_log is not None:
+        _update_log.append((b, n, k_obs, hp.n_alphas, hp.boxqp_iters, stats[3]))
     return _result(us, xs, stats, hp)
 
 
 sqp_solve.launches = 0
+_update_log: list | None = None
+
+
+@contextlib.contextmanager
+def record_updates():
+    """Collect, for every launch in the block, (B, N, K, n_alphas,
+    boxqp_iters, updates per scenario (B,) on the device): what
+    :func:`flop_count` and :func:`byte_count` need to bound the solves a
+    caller ran.  Nothing is read back here."""
+    global _update_log
+    _update_log = log = []
+    try:
+        yield log
+    finally:
+        _update_log = None
+
+
+def bound_inputs(log) -> tuple[int, int]:
+    """(operations, bytes) of the launches :func:`record_updates` logged."""
+    ops = sum(flop_count(n, k, a, q, its.tolist()) for _, n, k, a, q, its in log)
+    return ops, sum(byte_count(b, n, k) for b, n, k, *_ in log)
 
 
 def _result(us, xs, stats, hp: SolverHyper) -> SolveResult:

@@ -56,10 +56,15 @@ EDGE_CASES = {
     "rescue": (1, 30, MAP_POINTS, 3, "masked"),
     "rescue lattice ties": (1, 30, MAP_POINTS, 3, "lattice"),
 }
+FLEET_FRAME = 20 * 15  # the Monte-Carlo fleet's points per frame (80 x 60 render, grid scale 4)
+FLEET_MAP = 101 * FLEET_FRAME  # its queryable cloud: 100 keyframes and the current frame
 # The engine tick's shapes (B, Q, P, k, inputs): the forest_10k association
 # and edge warm start over (4 + 1) x 2,560 map points, the single-robot map
 # prune (100 keyframe slots, one query each, k=10) and the single-robot edge
-# warm start and brute-force rescue over (100 + 1) x 3,072 map points.
+# warm start and brute-force rescue over (100 + 1) x 3,072 map points; the
+# closed-loop fleet's (B=64, run_montecarlo's defaults) association and
+# edge warm start over its 30,300-point cloud, its prune (64 x 100 slots of
+# 300 points) and its dedupe (a frame against the newest keyframe).
 ENGINE_SHAPES = {
     "forest_10k association": (1024, 30, 5 * 2560, 3, "masked"),
     "forest_10k edge warm start": (1024, 1, 5 * 2560, 1, "masked"),
@@ -67,6 +72,10 @@ ENGINE_SHAPES = {
     "map prune k=10 lattice ties": (100, 1, FRAME, 10, "lattice"),
     "single-robot edge warm start": (1, 1, MAP_POINTS + FRAME, 1, "masked"),
     "single-robot rescue": (1, 30, MAP_POINTS + FRAME, 3, "masked"),
+    "fleet association": (64, 30, FLEET_MAP, 3, "masked"),
+    "fleet edge warm start": (64, 1, FLEET_MAP, 1, "masked"),
+    "fleet map prune k=10": (64 * 100, 1, FLEET_FRAME, 10, "masked"),
+    "fleet dedupe": (64, FLEET_FRAME, FLEET_FRAME, 1, "frame"),
 }
 TIMED = {
     "flagship": (4096, 20, 1024, 3, "forest"),

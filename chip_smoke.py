@@ -78,9 +78,29 @@ ticks, once with the fused solve and once with the per-phase solve
     plain run from the card's inputs, then 10 ticks timed by stage with
     11 k-NN and 3 SQP launches per tick, beside the reference's 33 ms, and
     one whole tick under ``set_sync_debug_mode("error")``;
-13. the TF32 gate: with ``allow_tf32`` on, the per-phase solve and the
-    engine tick equal their runs with it off and the flag is restored;
-14. a ``kernels`` JSON line; the last line is the device JSON.
+13. the TF32 gate: with ``allow_tf32`` on, the per-phase solve, the
+    engine tick and (after phase 15) one fleet world tick equal their runs
+    with it off and the flag is restored;
+14. the closed-loop tick (``sim/world.world_step_full``) on the card
+    against the JAX golden (``tests/data/world_gold.npz`` through
+    ``tools/verify_world.py``: 12 ticks of 8 scenarios from INIT to TASK,
+    each from its input state) and against the port's CPU run of the same
+    ticks: mission and bf_status equal, is_safety on >= 99%, converged on
+    >= 95%, max|du_cmd| <= 1e-3 where both converged, the next state where
+    the commands agree, the depth frames;
+15. the Monte-Carlo fleet: ``tools/run_montecarlo``'s ``setup`` and
+    ``run_chunk`` at B=64 for 300 ticks (80x60 render, 100 keyframes of
+    300 points, N=30), each tick timed by stage (render, depth, map,
+    engine, control + plant; CUDA events), 8 k-NN and 3 SQP launches per
+    tick, every scenario in TASK, finite states, converged share,
+    collisions, minimum clearance, final x, one tick's device time, idle
+    share and SQP bound, one tick under ``set_sync_debug_mode("error")``;
+16. the single robot at full fidelity (``bench_single_robot``'s geometry:
+    640x480, 3,072 points a frame, 100 keyframes, N=30, 24 trees): 90
+    chained ticks from the ground timed by stage against the reference's
+    33 ms, 11 k-NN and 3 SQP launches per tick, finite states, device
+    time, idle share and SQP bound, no host sync;
+17. a ``kernels`` JSON line; the last line is the device JSON.
 
 Kernel times (phases 5, 9, 10 and the kernels line) are the kernel's own
 device time from ``torch.profiler``'s kernel records; CUDA events around
@@ -467,7 +487,12 @@ FOREST_B = 1024  # the forest_10k cell's batch
 SR_TICKS = 10  # single-robot ticks timed
 GATE_TICKS = 3  # ticks held against the references (verify_engine.TICKS_GOLD)
 ENGINE_LAUNCHES = {"forest_10k": {"knn_topk": 6, "sqp_solve": 3},  # per tick: 3 x (edge + association), 3 solves
-                   "single robot": {"knn_topk": 11, "sqp_solve": 3}}  # + prune, dedupe; culled: candidates + rescue
+                   "single robot": {"knn_topk": 11, "sqp_solve": 3},  # + prune, dedupe; culled: candidates + rescue
+                   "fleet closed loop": {"knn_topk": 8, "sqp_solve": 3},  # the engine's 6 + the map's prune, dedupe
+                   "single robot closed loop": {"knn_topk": 11, "sqp_solve": 3}}
+FLEET_B, FLEET_TICKS = 64, 300  # phase 15: the README's campaign (run_montecarlo --batch 64 --ticks 300)
+SR_LOOP_WARMUP, SR_LOOP_TICKS = 2, 90  # phase 16: ticks not timed, then timed (about half of them in TASK)
+STAGES = ("render", "depth", "map", "engine", "control + plant")  # sim/world.world_step_full's marks
 
 
 def launch_counts() -> dict:
@@ -538,6 +563,27 @@ def control_box_ok(out, sp) -> bool:
     lo[:, 2] = torch.where(out.is_safety, lo[:, 2], -sp.u_upper[2])
     u = out.u_cmd
     return bool(torch.isfinite(u).all()) and bool(((u >= lo) & (u <= sp.u_upper)).all())
+
+
+def sqp_tick_bound(label: str, tick, sqp_ms: float) -> dict:
+    """The SQP kernel's bound for the solves of one call of ``tick``, from
+    the updates each scenario ran (``sqp_cuda.record_updates``), beside
+    ``sqp_ms``, the kernel's device time for those solves."""
+    import torch
+
+    from avoid_mpc_torch.solver.sqp_cuda import bound_inputs, record_updates
+
+    with record_updates() as log:
+        tick()
+    ops, n_bytes = bound_inputs(log)
+    bound, by = bound_ms(n_bytes, ops)
+    its = torch.cat([entry[-1] for entry in log]).float()
+    shapes = sorted({f"B={b}, N={n}" for b, n, *_ in log})
+    print(f"{label}: sqp bound for the {len(log)} solves of one tick ({', '.join(shapes)}) {bound:.4f} ms ({by}; "
+          f"{ops / 1e9:.4f} GFLOP from the updates run, mean {float(its.mean()):.3f} max {int(its.max())} per "
+          f"scenario per solve; {n_bytes / 1e6:.3f} MB), kernel {sqp_ms:.4f} ms, ratio {sqp_ms / bound:.1f}x",
+          flush=True)
+    return {"bound_ms": bound, "bound_by": by, "ms": sqp_ms, "solves": len(log)}
 
 
 def engine_forest(dev) -> dict:
@@ -615,12 +661,15 @@ def engine_forest(dev) -> dict:
           f"{parts['knn_topk_kernel']:.4f} (6 launches) + sqp {parts['sqp_solve_kernel']:.4f} (3 launches) + other "
           f"torch ops {other:.3f} (map clouds, 1-NN reductions, selects, affine maps); idle {p50 - busy:.3f} ms of "
           f"the p50 (idle share {1.0 - busy / p50:.3f})", flush=True)
+    sqp_bound = sqp_tick_bound("phase 11 forest_10k", lambda: receding_step(state_in, quad, m, p, h),
+                               parts["sqp_solve_kernel"])
 
     sync_err = host_sync(lambda: receding_step(state_in, quad, m, p, h))
     check(sync_err is None, f"forest_10k tick synchronised with the host: {sync_err}")
     print(f"phase 11 forest_10k: one tick under set_sync_debug_mode('error'): no host sync = {sync_err is None}",
           flush=True)
-    return {"p50": p50, "busy": busy, "parts": parts, "launches": launches, "tick": (state_in, quad, m, p, h)}
+    return {"p50": p50, "busy": busy, "parts": parts, "launches": launches, "tick": (state_in, quad, m, p, h),
+            "sqp_bound": sqp_bound}
 
 
 def synthetic_depth(pc, seed: int = 0):
@@ -760,8 +809,9 @@ def engine_single_robot(dev) -> dict:
           f"{parts['knn_topk_kernel']:.4f} (11 launches) + sqp {parts['sqp_solve_kernel']:.4f} (3 launches) + other "
           f"torch ops {busy - sum(parts.values()):.3f}; idle share of the p50 tick {1.0 - busy / t['tick']:.3f}",
           flush=True)
+    sqp_bound = sqp_tick_bound("phase 12 single robot", whole_tick, parts["sqp_solve_kernel"])
     association_route(state, quad, m, p, h)
-    return {"ms": t, "launches": launches, "busy": busy, "parts": parts}
+    return {"ms": t, "launches": launches, "busy": busy, "parts": parts, "sqp_bound": sqp_bound}
 
 
 def association_route(state, quad, m, p, h, reps: int = 10) -> None:
@@ -804,6 +854,20 @@ def association_route(state, quad, m, p, h, reps: int = 10) -> None:
           flush=True)
 
 
+def restore_matmul_precision(allow_tf32: bool, precision: str) -> None:
+    """Put back the TF32 flag and the float32 matmul precision through the
+    precision API last, so later solves can read it (some torch versions
+    refuse ``get_float32_matmul_precision`` after the legacy flag was set
+    on its own)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    torch.set_float32_matmul_precision(precision)
+    check(torch.get_float32_matmul_precision() == precision
+          and torch.backends.cuda.matmul.allow_tf32 == allow_tf32,
+          f"matmul precision not restored to {precision} / allow_tf32 {allow_tf32}")
+
+
 def tf32_gate(dev, problem, us0, sp, hp, forest_tick) -> None:
     """Phase 13: with ``torch.backends.cuda.matmul.allow_tf32`` on, the
     per-phase solve and the engine tick equal their runs with it off (the
@@ -813,7 +877,7 @@ def tf32_gate(dev, problem, us0, sp, hp, forest_tick) -> None:
     from avoid_mpc_torch.engine.receding import receding_step
     from avoid_mpc_torch.solver import ilqr
 
-    prev = torch.backends.cuda.matmul.allow_tf32
+    prev, prev_prec = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
 
     Ad, Bd, cvec = ilqr._affine_dynamics(sp, torch.float32)
 
@@ -833,13 +897,267 @@ def tf32_gate(dev, problem, us0, sp, hp, forest_tick) -> None:
         on, lin_on = run()
         kept = torch.backends.cuda.matmul.allow_tf32
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        restore_matmul_precision(prev, prev_prec)
     same = all(torch.equal(a, b) for a, b in zip(on, off))
     check(same and kept is True, f"TF32 gate: results equal {same}, caller's TF32 flag kept {kept}")
     print(f"phase 13 TF32 gate: per-phase solve and forest_10k tick with allow_tf32 on equal the runs with it off: "
           f"{same}; the caller's flag is back on after the solves: {kept is True}; outside a solve, the torch "
           f"linearization and LTI rollout differ by up to {float((lin_on - lin_off).abs().max()):.3e} under TF32; "
           f"flag restored to {prev}", flush=True)
+
+
+def world_gate(dev) -> None:
+    """Phase 14: the closed-loop tick on the card against the JAX golden
+    (``tools/verify_world.py``: 12 stored ticks of 8 scenarios, each from
+    its input state) and against the port's CPU run of the same ticks;
+    both must pass the gate."""
+    import numpy as np
+
+    from avoid_mpc_torch import config
+    from avoid_mpc_torch.tools import verify_world as vw
+
+    gold = dict(np.load(vw.GOLDEN))
+    sentinel = 2.0 * config.PerceptionConfig().depth_max
+    t0 = time.perf_counter()
+    card = vw.run_ticks(gold, dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = vw.run_ticks(gold, "cpu")
+    cpu_s = time.perf_counter() - t0
+    for ref_name, r in ((f"the JAX golden ({vw.GOLDEN.name})", vw.compare(card, vw.reference(gold), sentinel)),
+                        (f"the port's CPU run of the same ticks ({cpu_s:.1f} s on the host)",
+                         vw.compare(card, cpu, sentinel))):
+        label = f"phase 14 world tick on the card vs {ref_name}"
+        check(r["ok"], f"{label}: {r}")
+        print(f"{label}: {r['pairs']} (tick, scenario) pairs in missions {r['missions']}, mission equal "
+              f"{r['mission_equal']}, bf_status equal {r['bf_status_equal']}, is_safety agree "
+              f"{r['is_safety_agree']:.4f} (>= 0.99), converged agree {r['converged_agree']:.4f} (>= 0.95), max|du_cmd| "
+              f"{r['max_du_both_converged']:.3e} on the {r['n_both_converged']} pairs both converged (<= 1e-3; over all "
+              f"{r['max_du']:.3e}); where |du_cmd| <= 1e-3 ({r['u_near_share']:.4f} of pairs, >= 0.90) next p "
+              f"{r['max_dp_near']:.3e} m (<= 1e-4), v {r['max_dv_near']:.3e} m/s (<= 1e-3); depth hit / no return agree "
+              f"{r['depth_hit_agree']:.6f} (>= 0.9999), within 1e-5 relative {r['depth_within_rtol_share']:.5f} "
+              f"(>= 0.995), max rel {r['depth_max_rel']:.3e} (<= 1e-3); ok={r['ok']} (card run {card_s:.1f} s)",
+              flush=True)
+
+
+def _finite_floats(tree) -> bool:
+    """Every floating-point leaf of a nested NamedTuple of tensors is finite."""
+    import torch
+
+    if isinstance(tree, tuple):
+        return all(_finite_floats(t) for t in tree)
+    return not (isinstance(tree, torch.Tensor) and tree.is_floating_point()) or bool(torch.isfinite(tree).all())
+
+
+def _stage_marks():
+    """CUDA events for a tick's start, each of ``STAGES`` and its end, and
+    the ``mark`` callback that records the stages."""
+    import torch
+
+    e = {s: torch.cuda.Event(enable_timing=True) for s in ("start",) + STAGES + ("end",)}
+    return e, (lambda stage: e[stage].record())
+
+
+def _stage_p50(evs, ticks=None) -> dict:
+    """p50 ms of each stage and of the whole tick over ``evs`` (a list of
+    :func:`_stage_marks` dicts, optionally only the indices ``ticks``)."""
+    sel = [evs[i] for i in (range(len(evs)) if ticks is None else ticks)]
+
+    def p50(a, b):
+        ms = sorted(e[a].elapsed_time(e[b]) for e in sel)
+        return ms[len(ms) // 2]
+
+    bounds = ("start",) + STAGES
+    out = {s: p50(a, s) for a, s in zip(bounds, STAGES)}
+    ticks_ms = sorted(e["start"].elapsed_time(e["end"]) for e in sel)
+    out.update(tick=ticks_ms[len(ticks_ms) // 2], tick_min=ticks_ms[0], tick_max=ticks_ms[-1])
+    return out
+
+
+def _stage_line(t: dict) -> str:
+    return " + ".join(f"{s} {t[s]:.3f}" for s in STAGES)
+
+
+def fleet_campaign(dev) -> dict:
+    """Phase 15: the README's Monte-Carlo campaign, B=64 scenarios for 300
+    ticks, built and flown by ``tools/run_montecarlo``'s own functions
+    (``setup``, ``run_chunk``; the latency tracker's decay handed in once per
+    chunk of 50 ticks), every tick timed by stage with CUDA events; launch
+    counts, finite states, every scenario in TASK, one tick's device time
+    and SQP bound, one tick under ``set_sync_debug_mode("error")``."""
+    import torch
+
+    from avoid_mpc_torch.sim.world import MISSION_TASK, world_step
+    from avoid_mpc_torch.tools import run_montecarlo as mc
+    from avoid_mpc_torch.utils.profiling import LatencyTracker
+
+    args = mc.parse_args(["--batch", str(FLEET_B), "--ticks", str(FLEET_TICKS), "--device", str(dev)])
+    t0 = time.perf_counter()
+    camp = mc.setup(args)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    h = camp.hyper
+    print(f"phase 15 fleet: B={FLEET_B}, {FLEET_TICKS} ticks in chunks of {args.chunk}, {h.render_w}x{h.render_h} "
+          f"render, {h.map_shape.points_per_frame} points a frame, {h.map_shape.n_frames} keyframes "
+          f"({(h.map_shape.n_frames + 1) * h.map_shape.points_per_frame} map points), N={h.engine.n}, {args.trees} trees, "
+          f"depth noise {h.use_depth_noise}; set up in {setup_s:.1f} s", flush=True)
+    tracker = LatencyTracker(init=float(camp.cfg.mpc.decay))
+    ws, evs = camp.ws, []
+    reached = torch.zeros(FLEET_B, dtype=torch.bool, device=dev)
+    min_clear = torch.full((FLEET_B,), float("inf"), device=dev)
+    conv, in_task_n = torch.zeros(FLEET_B, device=dev), torch.zeros(FLEET_B, device=dev)
+    zero_launch_counts()
+    for _ in range(FLEET_TICKS // args.chunk):
+        decay_s = min(tracker.decay, 0.1)
+        decay = torch.full((), decay_s, dtype=camp.params.decay.dtype, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(args.chunk):
+            e, mark = _stage_marks()
+            e["start"].record()
+            ws, diag = mc.run_chunk(camp, ws, decay, 1, mark)
+            e["end"].record()
+            evs.append(e)
+            task = diag.mission[:, 0] == MISSION_TASK
+            reached |= task
+            conv += (diag.converged[:, 0] & task).float()
+            in_task_n += task.float()
+            min_clear = torch.minimum(min_clear, diag.clearance[:, 0])
+        torch.cuda.synchronize()
+        tracker.update((time.perf_counter() - t0) / args.chunk)
+    launches = launch_counts()
+    want = {"riccati_backward": 0, "line_search": 0,
+            **{k: v * FLEET_TICKS for k, v in ENGINE_LAUNCHES["fleet closed loop"].items()}}
+    check(launches == want, f"fleet launch counts {launches} != {want}")
+    t = _stage_p50(evs)
+    fin = _finite_floats(ws)
+    all_task = bool(reached.all())
+    check(fin, "fleet: a state is not finite after the campaign")
+    check(all_task, f"fleet: {int((~reached).sum())} of {FLEET_B} scenarios never reached MISSION_TASK")
+    conv_share = float(conv.sum() / in_task_n.sum().clamp_min(1.0))
+    mc_ = min_clear.cpu()
+    final_x = float(ws.plant.p[:, 0].mean())
+
+    params = camp.params._replace(decay=decay)
+    gen_tick = torch.Generator(device=dev).manual_seed(1)
+
+    def tick():
+        world_step(ws, camp.fields, params, h, gen_tick)
+
+    busy, parts = tick_breakdown(tick)
+    sqp_bound = sqp_tick_bound("phase 15 fleet", tick, parts["sqp_solve_kernel"])
+    sync_err = host_sync(tick)
+    check(sync_err is None, f"fleet tick synchronised with the host: {sync_err}")
+    print(f"phase 15 fleet: p50 tick {t['tick']:.3f} ms (min {t['tick_min']:.3f}, max {t['tick_max']:.3f}; CUDA "
+          f"events, {FLEET_TICKS} ticks) = {_stage_line(t)} ms (each a p50 of its own), {FLEET_B / t['tick'] * 1e3:.1f} "
+          f"scenario ticks/s; launches {launches} ({ENGINE_LAUNCHES['fleet closed loop']} per tick); every scenario "
+          f"reached TASK {all_task}, all states finite {fin}; converged share in TASK {conv_share:.4f}, collisions "
+          f"{int((mc_ <= 0.0).sum())}, min_clearance {float(mc_.min()):.3f} m, final_x_mean {final_x:.3f} m; decay fed "
+          f"per chunk, last {tracker.decay * 1e3:.3f} ms (clamped to 100); one tick under set_sync_debug_mode('error'):"
+          f" no host sync = {sync_err is None}", flush=True)
+    print(f"phase 15 fleet tick breakdown (device time, profiler, 3-tick mean): busy {busy:.3f} ms = knn "
+          f"{parts['knn_topk_kernel']:.4f} (8 launches) + sqp {parts['sqp_solve_kernel']:.4f} (3 launches) + other "
+          f"torch ops {busy - sum(parts.values()):.3f}; idle share of the p50 tick {1.0 - busy / t['tick']:.3f}",
+          flush=True)
+    return {"ms": t, "launches": launches, "busy": busy, "parts": parts, "sqp_bound": sqp_bound,
+            "tick": (ws, camp.fields, params, h)}
+
+
+def single_robot_loop(dev) -> dict:
+    """Phase 16: the single robot at full fidelity, the JAX package's
+    ``tools/bench_single_robot.py`` geometry: a 640x480 render with depth
+    noise, the /10 grid (3,072 points a frame), 100 keyframes,
+    ``EngineConfig()`` (N=30, 3 outer iterations), 24 trees; chained ticks
+    from the ground, timed by stage, against the reference's 33 ms."""
+    import torch
+
+    from avoid_mpc_torch import config
+    from avoid_mpc_torch.sim.scenarios import ScenarioConfig, random_forest
+    from avoid_mpc_torch.sim.world import MISSION_TASK, build_world, world_init, world_step
+
+    cfg = config.EngineConfig(task=config.TaskConfig(height=1.5))
+    params, h = build_world(cfg, render_scale=1, grid_scale=None, map_frames=None, device=dev)
+    field = random_forest(torch.Generator(device=dev).manual_seed(7), ScenarioConfig(n_cylinders=24), 1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ws = world_init(cfg, params, h, torch.zeros((1, 2), device=dev))
+    for _ in range(SR_LOOP_WARMUP):
+        ws, _ = world_step(ws, field, params, h, gen)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    evs, missions = [], []
+    for _ in range(SR_LOOP_TICKS):
+        e, mark = _stage_marks()
+        e["start"].record()
+        ws, diag = world_step(ws, field, params, h, gen, mark)
+        e["end"].record()
+        evs.append(e)
+        missions.append(diag.mission)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = {"riccati_backward": 0, "line_search": 0,
+            **{k: v * SR_LOOP_TICKS for k, v in ENGINE_LAUNCHES["single robot closed loop"].items()}}
+    check(launches == want, f"single robot closed loop launch counts {launches} != {want}")
+    in_task = [i for i, m in enumerate(torch.cat(missions).tolist()) if m == MISSION_TASK]
+    t = _stage_p50(evs)
+    t_task = _stage_p50(evs, in_task) if in_task else None
+    fin = _finite_floats(ws)
+    check(fin, "single robot closed loop: a state is not finite")
+    state = ws
+
+    def tick():
+        world_step(state, field, params, h, gen)
+
+    busy, parts = tick_breakdown(tick)
+    sqp_bound = sqp_tick_bound("phase 16 single robot closed loop", tick, parts["sqp_solve_kernel"])
+    sync_err = host_sync(tick)
+    check(sync_err is None, f"single robot closed-loop tick synchronised with the host: {sync_err}")
+    task_txt = (f"; the {len(in_task)} ticks in TASK: p50 {t_task['tick']:.3f} ms = {_stage_line(t_task)}"
+                if t_task else "; no tick in TASK")
+    print(f"phase 16 single robot closed loop: {h.render_w}x{h.render_h} render, {h.map_shape.points_per_frame} points "
+          f"a frame, {h.map_shape.n_frames} keyframes, N={h.engine.n}, 24 trees; {SR_LOOP_TICKS} chained ticks, p50 "
+          f"tick {t['tick']:.3f} ms (min {t['tick_min']:.3f}, max {t['tick_max']:.3f}; CUDA events) = {_stage_line(t)} ms"
+          f"{task_txt}; against the reference's 33 ms loop budget: {'met' if t['tick'] <= 33.0 else 'missed'}; "
+          f"launches {launches} ({ENGINE_LAUNCHES['single robot closed loop']} per tick); finite {fin}; final x "
+          f"{float(ws.plant.p[0, 0]):.3f} m; one tick under set_sync_debug_mode('error'): no host sync = "
+          f"{sync_err is None}", flush=True)
+    print(f"phase 16 single robot closed-loop tick breakdown (device time, profiler, 3-tick mean): busy {busy:.3f} ms "
+          f"= knn {parts['knn_topk_kernel']:.4f} (11 launches) + sqp {parts['sqp_solve_kernel']:.4f} (3 launches) + "
+          f"other torch ops {busy - sum(parts.values()):.3f}; idle share of the p50 tick {1.0 - busy / t['tick']:.3f}",
+          flush=True)
+    return {"ms": t, "ms_task": t_task, "launches": launches, "busy": busy, "parts": parts, "sqp_bound": sqp_bound}
+
+
+def tf32_world_gate(dev, world_tick) -> None:
+    """Phase 13, the closed loop: one fleet world tick with
+    ``allow_tf32`` on equals the tick with it off (the same noise, drawn
+    from one seed each time), and the caller's flag is restored."""
+    import torch
+
+    from avoid_mpc_torch.sim.world import world_step
+
+    ws, fields, params, h = world_tick
+    prev, prev_prec = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
+
+    def run():
+        new, diag = world_step(ws, fields, params, h, torch.Generator(device=dev).manual_seed(3))
+        torch.cuda.synchronize()
+        return new, diag
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = run()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = run()
+    finally:
+        restore_matmul_precision(prev, prev_prec)
+
+    def leaves(tree):
+        return [x for t in tree for x in leaves(t)] if isinstance(tree, tuple) else [tree]
+
+    same = all(torch.equal(a, b) for a, b in zip(leaves(on), leaves(off)))
+    check(same, "TF32 gate: the world tick with allow_tf32 on differs from the tick with it off")
+    print(f"phase 13 TF32 gate, closed loop: one fleet world tick (B={FLEET_B}) with allow_tf32 on equals the tick with "
+          f"it off in every state and diagnostic leaf: {same}; flag restored to {prev}", flush=True)
 
 
 def main() -> int:
@@ -1247,7 +1565,17 @@ def main() -> int:
     # ---- 13. TF32 ----
     tf32_gate(dev, problem, us0, sp, hp, forest["tick"])
 
-    # ---- 14. kernels ----
+    # ---- 14. the closed-loop world tick against the golden and the CPU ----
+    world_gate(dev)
+
+    # ---- 15. the Monte-Carlo fleet ----
+    fleet = fleet_campaign(dev)
+    tf32_world_gate(dev, fleet["tick"])
+
+    # ---- 16. the single robot, full fidelity ----
+    robot = single_robot_loop(dev)
+
+    # ---- 17. kernels ----
     kernels = [
         {"name": "knn_topk", "route": "cuda", "source": "avoid_mpc_torch/csrc/knn.cu",
          "replaces": "avoid_mpc_tpu/ops/pallas_knn.py:113", "launches": launches["knn_topk"],
@@ -1257,14 +1585,23 @@ def main() -> int:
          "library_parts_ms": {"cdist": knn_cdist_ms, "topk": knn_topk_lib_ms},
          "ms_at": knn_edge_ms,
          "launches_per_tick": {"flagship": launches["knn_topk"] // TICKS, "forest_10k": forest["launches"]["knn_topk"] // TICKS,
-                               "single robot": single["launches"]["knn_topk"] // SR_TICKS}},
+                               "single robot": single["launches"]["knn_topk"] // SR_TICKS,
+                               "fleet closed loop": fleet["launches"]["knn_topk"] // FLEET_TICKS,
+                               "single robot closed loop": robot["launches"]["knn_topk"] // SR_LOOP_TICKS},
+         "ms_per_tick": {"fleet closed loop": fleet["parts"]["knn_topk_kernel"],
+                         "single robot closed loop": robot["parts"]["knn_topk_kernel"]}},
         {"name": "sqp_solve", "route": "cuda", "source": "avoid_mpc_torch/csrc/sqp.cu",
          "replaces": "avoid_mpc_tpu/solver/pallas_sqp.py:753", "launches": launches["sqp_solve"],
          "max_abs_err": sqp_err, "ms": sqp_ms, "plain_ms": sqp_plain_ms, "bound_ms": sqp_bound,
          "bound_by": sqp_by, "library_ms": None,
          "ms_at": {"forest_10k tick (3 launches)": forest["parts"]["sqp_solve_kernel"]},
+         "bounds_at": {"forest_10k tick (B=1024, N=30)": forest["sqp_bound"], "single robot tick (B=1, N=30)":
+                       single["sqp_bound"], "fleet closed-loop tick (B=64, N=30)": fleet["sqp_bound"],
+                       "single robot closed-loop tick (B=1, N=30)": robot["sqp_bound"]},
          "launches_per_tick": {"flagship": launches["sqp_solve"] // TICKS, "forest_10k": forest["launches"]["sqp_solve"] // TICKS,
-                               "single robot": single["launches"]["sqp_solve"] // SR_TICKS}},
+                               "single robot": single["launches"]["sqp_solve"] // SR_TICKS,
+                               "fleet closed loop": fleet["launches"]["sqp_solve"] // FLEET_TICKS,
+                               "single robot closed loop": robot["launches"]["sqp_solve"] // SR_LOOP_TICKS}},
         {"name": "riccati_backward", "route": "cuda", "source": "avoid_mpc_torch/csrc/backward.cu",
          "replaces": "avoid_mpc_tpu/solver/pallas_backward.py:288", "launches": launches_f["riccati_backward"],
          "max_abs_err": bw_err, "ms": bw_ms, "plain_ms": bw_plain_ms, "bound_ms": bw_bound, "bound_by": bw_by,

@@ -151,3 +151,65 @@ def test_engine_params_and_state_round_trip():
     for f in tr.EngineState._fields:
         assert getattr(ts, f).shape[0] == 1, f
         np.testing.assert_allclose(getattr(own_s, f).numpy(), getattr(ts, f).numpy(), rtol=0, atol=1e-15)
+
+
+def test_boundary_scan_covers_the_closed_loop_slice():
+    """The scan and the import check walk the closed loop's modules too."""
+    scanned = {str(p.relative_to(PACKAGE)) for p in PACKAGE.rglob("*.py")}
+    for mod in ("control/geometric.py", "control/bfctrl.py", "sim/sensors.py", "sim/plant.py", "sim/world.py",
+                "sim/replay.py", "sim/scenarios.py", "utils/filters.py", "utils/recorder.py", "utils/profiling.py",
+                "tools/run_montecarlo.py", "tools/verify_world.py"):
+        assert mod in scanned, mod
+    for pkg in ("control", "sim"):
+        assert (PACKAGE / pkg / "__init__.py").exists(), pkg
+
+
+def _assert_same_leaves(port, ref, path=""):
+    if isinstance(port, tuple):
+        for name, a in zip(port._fields, port):
+            if name == "key" or (name == "imu" and not hasattr(ref, "imu")):
+                continue
+            _assert_same_leaves(a, getattr(ref, name), f"{path}.{name}")
+        return
+    if isinstance(port, (int, float)):
+        assert port == ref, path
+        return
+    a = port.numpy()
+    np.testing.assert_array_equal(a, np.asarray(ref).astype(a.dtype), err_msg=path)
+
+
+def test_world_params_and_state_round_trip():
+    """The port's ``build_world`` / ``world_init`` equal the JAX package's,
+    carried across by the interop helpers."""
+    import jax
+
+    from avoid_mpc_tpu.config import EngineConfig
+    from avoid_mpc_tpu.sim import world as jw
+    from avoid_mpc_torch.sim import world as tw
+
+    jparams, jhyper = jw.build_world(EngineConfig(), render_scale=8, grid_scale=4, map_frames=4, dtype=jnp.float64)
+    tparams, thyper = tw.build_world(tconfig.EngineConfig(), render_scale=8, grid_scale=4, map_frames=4,
+                                     dtype=torch.float64, device="cpu")
+    assert (thyper.render_h, thyper.render_w, thyper.map_shape) == (jhyper.render_h, jhyper.render_w,
+                                                                    tuple(jhyper.map_shape))
+    assert dataclasses.asdict(thyper.pcfg) == dataclasses.asdict(jhyper.pcfg)
+    _assert_same_leaves(tparams, jparams)
+    _assert_same_leaves(interop.world_params_from_numpy(jparams, "cpu", torch.float64), jparams)
+    starts = np.array([[0.1, -0.2], [0.3, 0.4]])
+    jws = jax.vmap(lambda s, k: jw.world_init(EngineConfig(), jparams, jhyper, s, k, dtype=jnp.float64))(
+        jnp.asarray(starts), jax.random.split(jax.random.PRNGKey(0), 2))
+    tws = tw.world_init(tconfig.EngineConfig(), tparams, thyper, torch.as_tensor(starts))
+    _assert_same_leaves(tws, jws)
+    _assert_same_leaves(interop.world_state_from_numpy(jax.tree.map(np.asarray, jws), "cpu", torch.float64), jws)
+
+
+def test_closed_loop_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch):
+    from avoid_mpc_torch.sim import sensors, world
+    from avoid_mpc_torch.tools import verify_world
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: world.build_world(tconfig.EngineConfig(), render_scale=8),
+                 lambda: sensors.ObstacleField.empty(), lambda: sensors.ImuParams.default(),
+                 lambda: verify_world.gate()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
