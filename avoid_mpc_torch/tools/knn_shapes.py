@@ -3,9 +3,10 @@ device times, for one checkout or for two checkouts run alternately.
 
     python -m avoid_mpc_torch.tools.knn_shapes [--against DIR]
 
-``EDGE_CASES`` and ``ENGINE_SHAPES`` (the engine tick's and the rolling
-map's) are the shapes at which ``chip_smoke.py`` phase 2 holds ``knn_topk``
-equal to ``knn_plain`` (``torch.equal`` on distances and coordinates);
+``EDGE_CASES`` and ``ENGINE_SHAPES`` (the engine tick's, the rolling
+map's and the scale-out step's point shard) are the shapes at which
+``chip_smoke.py`` phase 2 holds ``knn_topk`` equal to ``knn_plain``
+(``torch.equal`` on distances and coordinates);
 :func:`make_inputs` builds each from a seed on the device.
 ``TIMED`` are the shapes the callers run: the flagship association (B=4096,
 Q=20, P=1024, k=3, ``step.build_problem_batch``'s forest clouds), the
@@ -64,7 +65,9 @@ FLEET_MAP = 101 * FLEET_FRAME  # its queryable cloud: 100 keyframes and the curr
 # warm start and brute-force rescue over (100 + 1) x 3,072 map points; the
 # closed-loop fleet's (B=64, run_montecarlo's defaults) association and
 # edge warm start over its 30,300-point cloud, its prune (64 x 100 slots of
-# 300 points) and its dedupe (a frame against the newest keyframe).
+# 300 points) and its dedupe (a frame against the newest keyframe); and the
+# scale-out step's point shard (tools/dryrun_multichip: the 4096 scenarios'
+# start positions against one of two 4096-point halves of the world cloud).
 ENGINE_SHAPES = {
     "forest_10k association": (1024, 30, 5 * 2560, 3, "masked"),
     "forest_10k edge warm start": (1024, 1, 5 * 2560, 1, "masked"),
@@ -76,6 +79,7 @@ ENGINE_SHAPES = {
     "fleet edge warm start": (64, 1, FLEET_MAP, 1, "masked"),
     "fleet map prune k=10": (64 * 100, 1, FLEET_FRAME, 10, "masked"),
     "fleet dedupe": (64, FLEET_FRAME, FLEET_FRAME, 1, "frame"),
+    "scale-out point shard": (1, 4096, 4096, 3, "masked"),
 }
 TIMED = {
     "flagship": (4096, 20, 1024, 3, "forest"),

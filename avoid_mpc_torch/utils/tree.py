@@ -37,3 +37,11 @@ def named_leaves(tree, prefix: str = "") -> list[tuple[str, object]]:
         names = getattr(tree, "_fields", None) or [str(i) for i in range(len(tree))]
         return [pair for n, v in zip(names, tree) for pair in named_leaves(v, f"{prefix}{n}.")]
     return [(prefix[:-1], tree)]
+
+
+def to_device(tree, device):
+    """``tree`` (nested tuples of tensors and plain values) with every
+    tensor moved to ``device``; a tensor already there is returned as is."""
+    if isinstance(tree, tuple):
+        return _like(tree, [to_device(v, device) for v in tree])
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree

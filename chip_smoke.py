@@ -100,7 +100,21 @@ ticks, once with the fused solve and once with the per-phase solve
     chained ticks from the ground timed by stage against the reference's
     33 ms, 11 k-NN and 3 SQP launches per tick, finite states, device
     time, idle share and SQP bound, no host sync;
-17. a ``kernels`` JSON line; the last line is the device JSON.
+17. the scale-out (``tools/dryrun_multichip``'s 8 slots on the card, a 4 x
+    2 mesh, the flagship shapes): one sharded step (4 SQP launches of
+    B=1024, 2 k-NN launches of B=1, Q=4096, P=4096 and the association)
+    against the unsharded step (max|du| <= 1e-5, mean cost within 1e-4
+    relative, converged fraction equal, the points-sharded k-NN identical
+    to the dense one, per-scenario costs spread by 1% of the mean or more,
+    so a misplaced shard shows), the k-NN kernel at the point shard
+    against its plain twin with its time and bound, one sharded step under
+    ``set_sync_debug_mode("error")``, the multi-process entry
+    (``parallel/distributed.py``, one process per card over NCCL; one rank
+    on a one-card machine) bit-equal to this process's run of the same
+    mesh in its metrics and index-weighted checksums, ``tools/bench.py``'s JSON line, ``tools/offline_benchmark.py``
+    (finite final cost, both kernels launched), and the sharded and
+    unsharded steps timed in turns with their busy times;
+18. a ``kernels`` JSON line; the last line is the device JSON.
 
 Kernel times (phases 5, 9, 10 and the kernels line) are the kernel's own
 device time from ``torch.profiler``'s kernel records; CUDA events around
@@ -1160,6 +1174,166 @@ def tf32_world_gate(dev, world_tick) -> None:
           f"it off in every state and diagnostic leaf: {same}; flag restored to {prev}", flush=True)
 
 
+SCALE_SLOTS, SCALE_REPS = 8, 10  # phase 17: the dryrun's 4 x 2 mesh on cuda:0; steps timed per path
+
+
+def scale_out(dev, smi: str) -> dict:
+    """Phase 17: the scale-out path on one card.  The dryrun
+    (``tools/dryrun_multichip``: 8 slots on ``dev``, a 4 x 2 mesh, the
+    flagship shapes): one sharded step with its launch counts (one SQP
+    launch per scenario shard, one k-NN launch per point shard, plus the
+    association), held against the unsharded step (max |du| <= 1e-5, mean
+    cost within 1e-4 relative, converged fraction equal, the points-sharded
+    k-NN equal to the dense one, the per-scenario costs spread); the k-NN
+    kernel at the point shard's
+    inputs (B=1, Q=4096, P=4096) against its plain twin, its time and bound;
+    one sharded step under ``set_sync_debug_mode("error")``; the
+    multi-process entry (``parallel/distributed.py``, one process per card
+    over NCCL, a file:// rendezvous) against the same mesh shape run in
+    this process; ``tools/bench.py`` and ``tools/offline_benchmark.py``;
+    then the sharded and unsharded steps timed in turns, each with its
+    device busy time."""
+    import math
+    import os
+    import statistics
+    import tempfile
+
+    import torch
+
+    from avoid_mpc_torch.ops.knn import knn_plain
+    from avoid_mpc_torch.ops.knn_cuda import knn_topk
+    from avoid_mpc_torch.parallel import distributed
+    from avoid_mpc_torch.tools import bench, offline_benchmark
+    from avoid_mpc_torch.tools import dryrun_multichip as dm
+
+    d = dm.build(SCALE_SLOTS, dev, tiny=False)
+    n_s, n_p = d.mesh.shape["scenario"], d.mesh.shape["points"]
+    b, n = d.us.shape[:2]
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    sharded = dm.sharded_step(d)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = {"knn_topk": n_p + 1, "sqp_solve": n_s, "riccati_backward": 0, "line_search": 0}
+    check(launches == want, f"scale-out step launch counts {launches} != {want}")
+    r = dm.compare(sharded, dm.unsharded_step(d))
+    for gate, ok in r["gates"].items():
+        check(ok, f"scale-out dryrun: {gate} fails: {r}")
+    print(f"phase 17 dryrun: mesh {d.mesh.shape} on {dev} ({SCALE_SLOTS} slots), B={b}, N={n}, {d.hp.iters} iterations, "
+          f"{d.pts.shape[1]}-point clouds, world cloud {d.world.shape[0]} points; sharded vs unsharded: max|du| "
+          f"{r['max_du']:.3e} (gate 1e-5), mean cost {r['mean_cost']:.6f} vs {r['mean_cost_unsharded']:.6f}, converged "
+          f"{r['converged_frac']:.4f} vs {r['converged_frac_unsharded']:.4f}, per-scenario cost spread {r['cost_spread']:.3f} "
+          f"(gate >= 1% of the mean), points-sharded k-NN identical to dense "
+          f"(B=1, Q={b}, P={d.world.shape[0]}): {r['knn_equal']}; one sharded step launches {launches} (want one SQP per "
+          f"scenario shard, one k-NN per point shard + the association)", flush=True)
+
+    # the k-NN kernel at the point shard's own inputs
+    half = d.world.shape[0] // n_p
+    qs, ws, wm = d.x0[None, :, 0:3].contiguous(), d.world[None, :half].contiguous(), d.wmask[None, :half].contiguous()
+    dk, pk = knn_topk(qs, ws, wm, K_NN)
+    dp, pp = knn_plain(qs, ws, wm, K_NN)
+    same = torch.equal(dk, dp) and torch.equal(pk, pp)
+    shard_err = float((pk - pp).abs().max())
+    check(same, f"knn at the point shard's inputs differs from plain (max abs err {shard_err})")
+    shard_ms = kernel_ms(lambda: knn_topk(qs, ws, wm, K_NN), "knn_topk_kernel", reps=20)
+    shard_plain_ms = cuda_ms(lambda: knn_plain(qs, ws, wm, K_NN), reps=3)
+    cdist_ms = cuda_ms(lambda: torch.cdist(qs, ws, compute_mode="donot_use_mm_for_euclid_dist"), reps=5)
+    cd = torch.cdist(qs, ws, compute_mode="donot_use_mm_for_euclid_dist")
+    topk_ms = cuda_ms(lambda: torch.topk(cd, K_NN, dim=-1, largest=False), reps=5)
+    del cd
+    q_n, p_n = qs.shape[1], ws.shape[1]
+    shard_bytes = q_n * 3 * 4 + p_n * 3 * 4 + p_n + q_n * K_NN * 4 * 4
+    shard_bound, shard_by = bound_ms(shard_bytes, 8 * q_n * int(wm.sum()), F32_INSTR_PER_S)
+    print(f"phase 17 knn at the point shard (B=1, Q={q_n}, P={p_n}, k={K_NN}, every point valid): identical to plain "
+          f"{same}, kernel {shard_ms:.4f} ms (device time, profiler), bound {shard_bound:.4f} ms ({shard_by}), ratio "
+          f"{shard_ms / shard_bound:.1f}x, plain {shard_plain_ms:.3f} ms, cdist {cdist_ms:.3f} + topk {topk_ms:.3f} ms; "
+          f"{smi}", flush=True)
+
+    sync_err = host_sync(lambda: dm.sharded_step(d))
+    check(sync_err is None, f"the scale-out step synchronised with the host: {sync_err}")
+    print(f"phase 17 one sharded step under set_sync_debug_mode('error'): no host sync = {sync_err is None}", flush=True)
+
+    # the multi-process entry: one process per card over NCCL, against this process on the same mesh shape
+    world = torch.cuda.device_count()
+    per = 1 if world % 2 == 0 else 2  # an even slot count: a 2-wide 'points' axis
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "avoid_mpc_torch.parallel.distributed", "--device", "cuda", "--coordinator",
+             f"file://{tmp}/rendezvous", "--num-processes", str(world), "--process-id", str(i), "--slots", str(per),
+             "--out", f"{tmp}/out{i}.json"], cwd=root, env=dict(os.environ), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for i in range(world)]
+        try:
+            logs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        rcs = [p.returncode for p in procs]
+        multi = json.loads(Path(tmp, "out0.json").read_text()) if rcs[0] == 0 else {}
+    multi_s = time.perf_counter() - t0
+    check(all(rc == 0 for rc in rcs), f"multi-process entry exit codes {rcs}: {[e[-2000:] for _, e in logs]}")
+    single = distributed.run(distributed.parse_args(["--device", "cuda", "--slots", str(world * per)]), dev)
+    keys = ("mean_cost", "converged_frac", "knn_sharded_checksum", "us_checksum", "cost_checksum", "cost_spread")
+    equal = bool(multi) and all(multi[k] == single[k] for k in keys)
+    check(equal and multi.get("backend") == "nccl" and multi.get("num_processes") == world,
+          f"multi-process entry {multi} != in-script run {single} on {keys}")
+    check(single["cost_spread"] >= 0.01 * single["mean_cost"],
+          f"the entry's scenarios do not tell shards apart: cost spread {single['cost_spread']}")
+    print(f"phase 17 multi-process entry: {world} rank(s) over {multi.get('backend')}"
+          f"{' (a one-card machine: one NCCL rank)' if world == 1 else ''}, {multi.get('devices')} slots ({per} per "
+          f"rank), mesh {multi['devices'] // multi['point_shards'] if multi else 0} x {multi.get('point_shards')}, batch {multi.get('batch')}: mean cost {multi.get('mean_cost')}, converged "
+          f"{multi.get('converged_frac')}, k-NN checksum {multi.get('knn_sharded_checksum')}, us checksum "
+          f"{multi.get('us_checksum')}, cost checksum {multi.get('cost_checksum')} (scenario i weighted i + 1), cost "
+          f"spread {multi.get('cost_spread')}; bit-equal to this process's run of the same mesh: {equal} ({multi_s:.1f} s with "
+          f"the processes' start)", flush=True)
+
+    # the quick-start entry points
+    bench_out = bench.main(["--device", "cuda"])
+    steps = bench_out["timed_steps"]
+    check(bench_out["path"] == "kernel" and bench_out["launches"] == {"knn_topk": steps, "sqp_solve": steps}
+          and math.isfinite(bench_out["value"]), f"tools/bench.py: {bench_out}")
+    zero_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        off = offline_benchmark.main(["--no-plot", "--out-dir", tmp])
+        desc_ok = Path(tmp, "description.yaml").is_file()
+    off_launches = launch_counts()
+    check(math.isfinite(off["final_cost"]) and off_launches["knn_topk"] > 0 and off_launches["sqp_solve"] > 0
+          and desc_ok, f"offline benchmark: final cost {off['final_cost']}, launches {off_launches}, "
+                       f"description.yaml written {desc_ok}")
+    print(f"phase 17 offline benchmark: final cost {off['final_cost']:.4f}, {off['outer_iters']} outer iterations in "
+          f"{off['elapsed_s'] * 1e3:.3f} ms (host clock), launches {off_launches}", flush=True)
+
+    # the sharded step against the unsharded one, in turns
+    ms = {"sharded": [], "unsharded": []}
+    steps_fn = {"sharded": lambda: dm.sharded_step(d), "unsharded": lambda: dm.unsharded_step(d)}
+    for i in range(2 * SCALE_REPS):
+        name = ("sharded", "unsharded")[(i + i // 2) % 2]  # s, u, u, s, ...
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        steps_fn[name]()
+        e1.record()
+        e1.synchronize()
+        ms[name].append(e0.elapsed_time(e1))
+    times = {}
+    for name, fn in steps_fn.items():
+        busy, parts = tick_breakdown(fn)
+        p50 = statistics.median(ms[name])
+        times[name] = {"p50": p50, "min": min(ms[name]), "max": max(ms[name]), "busy": busy, "parts": parts}
+        check(busy > 0, f"the profiler saw no device activity in the {name} step")
+        print(f"phase 17 {name} step: p50 {p50:.3f} ms (min {min(ms[name]):.3f}, max {max(ms[name]):.3f}; CUDA events, "
+              f"{SCALE_REPS} steps in turns), {b / p50 * 1e3:.1f} solves/s; device busy {busy:.3f} ms = knn "
+              f"{parts['knn_topk_kernel']:.4f} + sqp {parts['sqp_solve_kernel']:.4f} + other "
+              f"{busy - parts['knn_topk_kernel'] - parts['sqp_solve_kernel']:.3f} (profiler, 3-step mean); idle share "
+              f"{1.0 - busy / p50:.3f}; {smi}", flush=True)
+    return {"launches": launches, "shard_ms": shard_ms, "shard_plain_ms": shard_plain_ms, "shard_bound": shard_bound,
+            "shard_by": shard_by, "shard_err": shard_err, "shard_lib_ms": cdist_ms + topk_ms, "times": times,
+            "max_du": r["max_du"], "sqp_shard_b": b // n_s}
+
+
 def main() -> int:
     import torch
 
@@ -1575,16 +1749,24 @@ def main() -> int:
     # ---- 16. the single robot, full fidelity ----
     robot = single_robot_loop(dev)
 
-    # ---- 17. kernels ----
+    # ---- 17. scale-out ----
+    scale = scale_out(dev, smi)
+    scale_step = f"scale-out step ({scale['launches']['sqp_solve']} launches of B={scale['sqp_shard_b']})"
+
+    # ---- 18. kernels ----
     kernels = [
         {"name": "knn_topk", "route": "cuda", "source": "avoid_mpc_torch/csrc/knn.cu",
          "replaces": "avoid_mpc_tpu/ops/pallas_knn.py:113", "launches": launches["knn_topk"],
-         "max_abs_err": knn_err, "ms": knn_ms, "plain_ms": knn_plain_ms, "bound_ms": knn_bound,
+         "max_abs_err": max(knn_err, scale["shard_err"]), "ms": knn_ms, "plain_ms": knn_plain_ms, "bound_ms": knn_bound,
          "bound_by": knn_by, "library_ms": knn_lib_ms,
          "library_call": "torch.cdist(donot_use_mm_for_euclid_dist)+torch.topk, two calls, mask not applied",
          "library_parts_ms": {"cdist": knn_cdist_ms, "topk": knn_topk_lib_ms},
-         "ms_at": knn_edge_ms,
-         "launches_per_tick": {"flagship": launches["knn_topk"] // TICKS, "forest_10k": forest["launches"]["knn_topk"] // TICKS,
+         "ms_at": {**knn_edge_ms, "scale-out point shard (B=1, Q=4096, P=4096, k=3)": scale["shard_ms"]},
+         "bounds_at": {"scale-out point shard (B=1, Q=4096, P=4096, k=3)": {
+             "bound_ms": scale["shard_bound"], "bound_by": scale["shard_by"], "plain_ms": scale["shard_plain_ms"],
+             "library_ms": scale["shard_lib_ms"]}},
+         "launches_per_tick": {"scale-out step": scale["launches"]["knn_topk"],
+                               "flagship": launches["knn_topk"] // TICKS, "forest_10k": forest["launches"]["knn_topk"] // TICKS,
                                "single robot": single["launches"]["knn_topk"] // SR_TICKS,
                                "fleet closed loop": fleet["launches"]["knn_topk"] // FLEET_TICKS,
                                "single robot closed loop": robot["launches"]["knn_topk"] // SR_LOOP_TICKS},
@@ -1594,11 +1776,13 @@ def main() -> int:
          "replaces": "avoid_mpc_tpu/solver/pallas_sqp.py:753", "launches": launches["sqp_solve"],
          "max_abs_err": sqp_err, "ms": sqp_ms, "plain_ms": sqp_plain_ms, "bound_ms": sqp_bound,
          "bound_by": sqp_by, "library_ms": None,
-         "ms_at": {"forest_10k tick (3 launches)": forest["parts"]["sqp_solve_kernel"]},
+         "ms_at": {"forest_10k tick (3 launches)": forest["parts"]["sqp_solve_kernel"],
+                   scale_step: scale["times"]["sharded"]["parts"]["sqp_solve_kernel"]},
          "bounds_at": {"forest_10k tick (B=1024, N=30)": forest["sqp_bound"], "single robot tick (B=1, N=30)":
                        single["sqp_bound"], "fleet closed-loop tick (B=64, N=30)": fleet["sqp_bound"],
                        "single robot closed-loop tick (B=1, N=30)": robot["sqp_bound"]},
-         "launches_per_tick": {"flagship": launches["sqp_solve"] // TICKS, "forest_10k": forest["launches"]["sqp_solve"] // TICKS,
+         "launches_per_tick": {"scale-out step": scale["launches"]["sqp_solve"],
+                               "flagship": launches["sqp_solve"] // TICKS, "forest_10k": forest["launches"]["sqp_solve"] // TICKS,
                                "single robot": single["launches"]["sqp_solve"] // SR_TICKS,
                                "fleet closed loop": fleet["launches"]["sqp_solve"] // FLEET_TICKS,
                                "single robot closed loop": robot["launches"]["sqp_solve"] // SR_LOOP_TICKS}},

@@ -134,6 +134,20 @@ def test_boundary_scan_covers_the_engine_slice():
         assert (PACKAGE / pkg / "__init__.py").exists(), pkg
 
 
+def test_boundary_scan_covers_the_scale_out_slice():
+    """The scale-out modules and the quick-start tools are scanned and
+    imported too; importing them starts no process group."""
+    scanned = {str(p.relative_to(PACKAGE)) for p in PACKAGE.rglob("*.py")}
+    for mod in ("parallel/__init__.py", "parallel/mesh.py", "parallel/distributed.py", "tools/dryrun_multichip.py",
+                "tools/bench.py", "tools/offline_benchmark.py", "tools/bench_scaling.py"):
+        assert mod in scanned, mod
+    import torch.distributed as dist
+
+    from avoid_mpc_torch.parallel import distributed  # noqa: F401
+
+    assert not dist.is_initialized()
+
+
 def test_engine_params_and_state_round_trip():
     from avoid_mpc_tpu.config import EngineConfig
     from avoid_mpc_tpu.engine import receding as jr
