@@ -6,10 +6,12 @@ problem batches, engine and world states, rolling maps and obstacle fields
 play that role.  These helpers take any object with the field names of the
 JAX package's ``SolverParams`` / ``MPCProblem`` / ``EngineParams`` /
 ``EngineState`` / ``RollingMap`` / ``ObstacleField`` / ``SixDofState`` /
-``BfctrlState`` / ``COGFilterState`` / ``WorldParams`` / ``WorldState``
-(numpy arrays, or anything ``numpy.asarray`` accepts) and return the port's
+``BfctrlState`` / ``COGFilterState`` / ``WorldParams`` / ``WorldState`` /
+``HomeFrame`` / the geofences / ``RotorParams`` / ``RotorState`` /
+``SixDofRotorState`` / ``BarometerParams`` / ``GpsParams`` (numpy arrays,
+or anything ``numpy.asarray`` accepts) and return the port's
 tensors, so both packages can run on identical inputs.  An engine state or
-map without a batch axis gets one of size 1; the closed-loop states must
+map or a home frame without a batch axis gets one of size 1; the closed-loop states must
 carry their batch axis (a vmapped JAX state).  Booleans stay bool, integers
 become int64, floats ``dtype``; Python ints (static shapes) stay ints.
 """
@@ -21,14 +23,17 @@ import torch
 
 from avoid_mpc_torch.control.bfctrl import BfctrlParams, BfctrlState
 from avoid_mpc_torch.control.geometric import ControllerParams, ThrustModelState
+from avoid_mpc_torch.control.home_frame import HomeFrame
 from avoid_mpc_torch.device import resolve_device
 from avoid_mpc_torch.engine.receding import EngineParams, EngineState
 from avoid_mpc_torch.mapping.rolling_map import RollingMap
 from avoid_mpc_torch.models.costs import CostParams
 from avoid_mpc_torch.models.quadrotor import DynamicsParams
 from avoid_mpc_torch.ops.depth import CameraModel
-from avoid_mpc_torch.sim.plant import SixDofParams, SixDofState
-from avoid_mpc_torch.sim.sensors import CameraRig, ImuParams, ObstacleField
+from avoid_mpc_torch.safety.geofence import CubeGeofence, SphereGeofence
+from avoid_mpc_torch.sim.plant import SixDofParams, SixDofRotorState, SixDofState
+from avoid_mpc_torch.sim.rotor import RotorParams, RotorState
+from avoid_mpc_torch.sim.sensors import BarometerParams, CameraRig, GpsParams, ImuParams, ObstacleField
 from avoid_mpc_torch.sim.world import WorldParams, WorldState
 from avoid_mpc_torch.solver.ilqr import MPCProblem, SolverParams
 from avoid_mpc_torch.utils.filters import COGFilterState
@@ -176,3 +181,41 @@ def world_state_from_numpy(ws, device="cuda", dtype=torch.float32) -> WorldState
         ctrl=bfctrl_state_from_numpy(ws.ctrl, dev, dtype), engine=engine_state_from_numpy(ws.engine, dev, dtype),
         map=rolling_map_from_numpy(ws.map, dev, dtype), cog=cog_state_from_numpy(ws.cog, dev, dtype),
     )
+
+
+def home_frame_from_numpy(h, device="cuda", dtype=torch.float32) -> HomeFrame:
+    """``h`` has ``p_home``, ``q_home`` and ``latched``, with or without a
+    batch axis."""
+    out = fields_from_numpy(HomeFrame, h, resolve_device(device), dtype)
+    return out if out.p_home.dim() == 2 else HomeFrame(*(t[None] for t in out))
+
+
+def geofence_from_numpy(f, device="cuda", dtype=torch.float32) -> CubeGeofence | SphereGeofence:
+    """A cube (``lo``, ``hi``) or sphere (``center``, ``radius``) fence."""
+    cls = CubeGeofence if hasattr(f, "lo") else SphereGeofence
+    return fields_from_numpy(cls, f, resolve_device(device), dtype)
+
+
+def rotor_params_from_numpy(p, device="cuda", dtype=torch.float32) -> RotorParams:
+    return fields_from_numpy(RotorParams, p, resolve_device(device), dtype)
+
+
+def rotor_state_from_numpy(s, device="cuda", dtype=torch.float32) -> RotorState:
+    """``s.filtered`` (B, 4), or (4,) for a batch of one."""
+    out = fields_from_numpy(RotorState, s, resolve_device(device), dtype)
+    return out if out.filtered.dim() == 2 else RotorState(out.filtered[None])
+
+
+def sixdof_rotor_state_from_numpy(s, device="cuda", dtype=torch.float32) -> SixDofRotorState:
+    """``s`` has ``body`` (a batched ``SixDofState``) and ``rotors``."""
+    dev = resolve_device(device)
+    return SixDofRotorState(body=sixdof_state_from_numpy(s.body, dev, dtype),
+                            rotors=rotor_state_from_numpy(s.rotors, dev, dtype))
+
+
+def barometer_params_from_numpy(p, device="cuda", dtype=torch.float32) -> BarometerParams:
+    return fields_from_numpy(BarometerParams, p, resolve_device(device), dtype)
+
+
+def gps_params_from_numpy(p, device="cuda", dtype=torch.float32) -> GpsParams:
+    return fields_from_numpy(GpsParams, p, resolve_device(device), dtype)

@@ -1,5 +1,5 @@
 """6-DoF quadrotor plant with an attitude cascade, batch-first (port of
-``avoid_mpc_tpu/sim/plant.py:47-212, 306-314``).
+``avoid_mpc_tpu/sim/plant.py``).
 
 - **Rigid body**: the wrench drives a Verlet step with a trapezoidal
   velocity update and an exponential-map attitude update, quadratic drag,
@@ -12,7 +12,9 @@
 
 One :func:`sixdof_step` is a control period of ``substeps`` physics
 updates, a Python loop of small tensor ops over the whole batch (the JAX
-package scans them).  World frame z-up.
+package scans them).  :func:`sixdof_step_rotor` is the same rigid body at
+per-rotor fidelity: the cascade's output goes through the QuadX mixer and
+the rotor filters of ``sim/rotor.py``.  World frame z-up.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from avoid_mpc_torch.device import resolve_device
+from avoid_mpc_torch.sim.rotor import RotorParams, RotorState, mix_quadx, rotor_init, rotor_step
 from avoid_mpc_torch.utils.quaternion import (
     quat_conjugate,
     quat_integrate,
@@ -139,28 +142,77 @@ def sixdof_step(s: SixDofState, q_des: torch.Tensor, thrust_signal: torch.Tensor
     lift_off = thrust_signal * p.max_thrust >= p.mass * GRAVITY
     for _ in range(p.substeps):
         torque, angle_int, rate_int = _cascade(s, q_des, h, p)
-        R = quat_to_rotmat(s.q)
-        thrust_force = R[..., :, 2] * thrust_signal[..., None] * p.max_thrust
-        drag = (-p.drag_c * torch.linalg.vector_norm(s.v, dim=-1))[..., None] * s.v
-        grounded = s.grounded & ~lift_off
-        g = grounded[..., None]
-        acc = (thrust_force + drag) / p.mass
-        a_new = torch.where(g, 0.0, _with_z(acc, acc[..., 2] - GRAVITY))
-        avg_w = s.w + s.a_ang * (0.5 * h)
-        L = p.inertia * avg_w
-        a_ang_new = torch.where(g, 0.0, (torque - torch.linalg.cross(avg_w, L, dim=-1)) / p.inertia)
-        avg_lin = s.v + s.a_lin * (0.5 * h)
-        v_new = torch.where(g, 0.0, s.v + (s.a_lin + a_new) * (0.5 * h))
-        w_new = torch.where(g, 0.0, s.w + (s.a_ang + a_ang_new) * (0.5 * h))
-        p_new = s.p + avg_lin * h
-        q_new = quat_integrate(s.q, avg_w * torch.where(g, 0.0, 1.0), h)
-        # the hard ground plane: never below z = 0
-        below = p_new[..., 2] < 0.0
-        p_new = _with_z(p_new, torch.clamp_min(p_new[..., 2], 0.0))
-        v_new = torch.where(below[..., None], _with_z(v_new, torch.clamp_min(v_new[..., 2], 0.0)), v_new)
-        s = SixDofState(p=p_new, q=q_new, v=v_new, w=w_new, a_lin=a_new, a_ang=a_ang_new, angle_int=angle_int,
-                        rate_int=rate_int, grounded=grounded)
+        thrust_force = quat_to_rotmat(s.q)[..., :, 2] * thrust_signal[..., None] * p.max_thrust
+        s = _rigid_body_update(s, thrust_force, torque, s.grounded & ~lift_off, angle_int, rate_int, h, p)
     return s
+
+
+def _rigid_body_update(s: SixDofState, thrust_force, torque, grounded, angle_int, rate_int, h, p: SixDofParams
+                       ) -> SixDofState:
+    """One physics substep of length h from the world thrust force and the
+    body torque: Verlet / trapezoidal updates, quadratic drag, Euler's
+    rotation equation, the ground lock and the ground plane z = 0."""
+    drag = (-p.drag_c * torch.linalg.vector_norm(s.v, dim=-1))[..., None] * s.v
+    g = grounded[..., None]
+    acc = (thrust_force + drag) / p.mass
+    a_new = torch.where(g, 0.0, _with_z(acc, acc[..., 2] - GRAVITY))
+    avg_w = s.w + s.a_ang * (0.5 * h)
+    L = p.inertia * avg_w
+    a_ang_new = torch.where(g, 0.0, (torque - torch.linalg.cross(avg_w, L, dim=-1)) / p.inertia)
+    avg_lin = s.v + s.a_lin * (0.5 * h)
+    v_new = torch.where(g, 0.0, s.v + (s.a_lin + a_new) * (0.5 * h))
+    w_new = torch.where(g, 0.0, s.w + (s.a_ang + a_ang_new) * (0.5 * h))
+    p_new = s.p + avg_lin * h
+    q_new = quat_integrate(s.q, avg_w * torch.where(g, 0.0, 1.0), h)
+    # the hard ground plane: never below z = 0
+    below = p_new[..., 2] < 0.0
+    p_new = _with_z(p_new, torch.clamp_min(p_new[..., 2], 0.0))
+    v_new = torch.where(below[..., None], _with_z(v_new, torch.clamp_min(v_new[..., 2], 0.0)), v_new)
+    return SixDofState(p=p_new, q=q_new, v=v_new, w=w_new, a_lin=a_new, a_ang=a_ang_new, angle_int=angle_int,
+                       rate_int=rate_int, grounded=grounded)
+
+
+class SixDofRotorState(NamedTuple):
+    """Plant state at per-rotor fidelity: the rigid body and the actuator
+    filters."""
+
+    body: SixDofState
+    rotors: RotorState
+
+
+def sixdof_rotor_init(p0: torch.Tensor, yaw0: torch.Tensor | None = None) -> SixDofRotorState:
+    """:func:`sixdof_init` with the rotors at rest."""
+    return SixDofRotorState(body=sixdof_init(p0, yaw0),
+                            rotors=rotor_init(p0.shape[0], dtype=p0.dtype, device=p0.device))
+
+
+def sixdof_step_rotor(s: SixDofRotorState, q_des: torch.Tensor, thrust_signal: torch.Tensor, dt, p: SixDofParams,
+                      rp: RotorParams | None = None) -> SixDofRotorState:
+    """Advance one control period at per-rotor fidelity: the rigid body of
+    :func:`sixdof_step`, with the wrench from the actuation chain: cascade
+    output -> QuadX mixer -> per-rotor first-order filters -> thrust and
+    drag torques summed over the rotors.  Attitude torque saturates with
+    the motors and yaw authority comes from rotor drag.  The ground lock
+    holds until the delivered (filtered) collective force beats the
+    weight.  ``rp`` defaults to :meth:`RotorParams.default` on the plant's
+    device."""
+    b = s.body
+    if rp is None:
+        rp = RotorParams.default(dtype=b.p.dtype, device=b.p.device)
+    rs = s.rotors
+    h = dt / p.substeps
+    thrust_signal = torch.clamp(thrust_signal, 0.0, 1.0)
+    for _ in range(p.substeps):
+        u, angle_int, rate_int = _cascade_u(b, q_des, h, p)
+        motors = mix_quadx(thrust_signal, u[..., 0], u[..., 1], u[..., 2], rp)
+        rs, force_b, torque = rotor_step(rs, motors, h, rp)
+        R = quat_to_rotmat(b.q)
+        # body -> world force as per-column products (no matmul)
+        thrust_force = (R[..., :, 0] * force_b[..., 0:1] + R[..., :, 1] * force_b[..., 1:2]
+                        + R[..., :, 2] * force_b[..., 2:3])
+        grounded = b.grounded & ~(force_b[..., 2] >= p.mass * GRAVITY)
+        b = _rigid_body_update(b, thrust_force, torque, grounded, angle_int, rate_int, h, p)
+    return SixDofRotorState(body=b, rotors=rs)
 
 
 def sixdof_to_mpc_state(s: SixDofState) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Sensor models, batch-first: the analytic depth-camera raycaster and the
-IMU (port of ``avoid_mpc_tpu/sim/sensors.py:32-277``).
+"""Sensor models, batch-first: the analytic depth-camera raycaster, the
+IMU, the barometer, GPS, magnetometer, forward rangefinder and the rotating
+lidar (port of ``avoid_mpc_tpu/sim/sensors.py``).
 
 - **Depth camera**: a planar-depth raycast against an analytic obstacle
   field (vertical cylinders, spheres and the ground plane z=0), camera x
@@ -8,6 +9,11 @@ IMU (port of ``avoid_mpc_tpu/sim/sensors.py:32-277``).
   noise of sigma ``depth_std_dev`` is added.
 - **IMU**: body-frame specific force and gyro with a bias random walk and
   white noise.
+- **Barometer, GPS, magnetometer, rangefinder**: altitude with a drifting
+  bias, a position fix, the body-frame north vector and the central depth
+  ray, each plus Gaussian noise.
+- **Lidar**: a rotating multi-channel head (VLP-16 by default) raycast
+  against the same field; world-frame points with a hit mask.
 
 Every ray of every scenario is one element of a (B, H*W, K) intersection
 per object kind, reduced over K at once; the dot products against
@@ -15,9 +21,9 @@ world-scale offsets are broadcast products, never ``matmul``, so TF32
 cannot touch them.
 
 Noise comes from an explicit ``torch.Generator`` on the tensors' device,
-drawn batch-wide.  It cannot reproduce ``jax.random`` streams, so parity
-with the JAX package runs without noise and the noise is checked by its
-statistics.
+drawn batch-wide; without one a sensor returns its noise-free part.  It
+cannot reproduce ``jax.random`` streams, so parity with the JAX package runs
+without noise and the noise is checked by its statistics.
 """
 
 from __future__ import annotations
@@ -26,9 +32,9 @@ from typing import NamedTuple
 
 import torch
 
-from avoid_mpc_torch.config import GRAVITY, PerceptionConfig
+from avoid_mpc_torch.config import GRAVITY, LidarConfig, PerceptionConfig
 from avoid_mpc_torch.device import resolve_device
-from avoid_mpc_torch.utils.quaternion import compose_tf, quat_to_rotmat, rotate_transposed
+from avoid_mpc_torch.utils.quaternion import compose_tf, quat_to_rotmat, rotate, rotate_transposed
 
 
 class ObstacleField(NamedTuple):
@@ -187,3 +193,138 @@ def imu_measure(q, a_world, w_body, bias, dt, params: ImuParams, generator: torc
     accel = f_body + bias[..., :3] + params.accel_noise * noise[..., 6:9]
     gyro = w_body + bias[..., 3:] + params.gyro_noise * noise[..., 9:12]
     return accel, gyro, bias
+
+
+def _randn(like: torch.Tensor, shape, generator: torch.Generator) -> torch.Tensor:
+    return torch.randn(shape, generator=generator, dtype=like.dtype, device=like.device)
+
+
+class BarometerParams(NamedTuple):
+    """Pressure-altitude model (AirLib BarometerSimple reduced)."""
+
+    noise_sigma: torch.Tensor  # altitude-equivalent white noise [m]
+    bias_walk: torch.Tensor  # bias random-walk sigma per sqrt(s)
+
+    @staticmethod
+    def default(dtype=torch.float32, device="cuda") -> "BarometerParams":
+        dev = resolve_device(device)
+        return BarometerParams(noise_sigma=torch.tensor(0.1, dtype=dtype, device=dev),
+                               bias_walk=torch.tensor(0.005, dtype=dtype, device=dev))
+
+
+def barometer_measure(z: torch.Tensor, bias: torch.Tensor, dt, p: BarometerParams,
+                      generator: torch.Generator | None = None):
+    """Altitudes (B,) and the new biases (B,) of a barometer at heights z
+    (B,): the bias takes a random-walk step and white noise is added.
+    Without a generator: z + bias, the bias unchanged."""
+    if generator is None:
+        return z + bias, bias
+    n = _randn(z, (2,) + tuple(z.shape), generator)
+    bias = bias + p.bias_walk * dt ** 0.5 * n[0]
+    return z + bias + p.noise_sigma * n[1], bias
+
+
+class GpsParams(NamedTuple):
+    """Horizontal / vertical position-fix model (AirLib GpsSimple reduced)."""
+
+    eph: torch.Tensor  # horizontal 1-sigma [m]
+    epv: torch.Tensor  # vertical 1-sigma [m]
+
+    @staticmethod
+    def default(dtype=torch.float32, device="cuda") -> "GpsParams":
+        dev = resolve_device(device)
+        return GpsParams(eph=torch.tensor(0.3, dtype=dtype, device=dev), epv=torch.tensor(0.5, dtype=dtype, device=dev))
+
+
+def gps_measure(p_world: torch.Tensor, params: GpsParams, generator: torch.Generator | None = None) -> torch.Tensor:
+    """Position fixes (B, 3): the true positions plus (eph, eph, epv) noise."""
+    if generator is None:
+        return p_world
+    sig = torch.stack([params.eph, params.eph, params.epv])
+    return p_world + sig * _randn(p_world, p_world.shape, generator)
+
+
+def magnetometer_measure(q: torch.Tensor, declination, noise, generator: torch.Generator | None = None
+                         ) -> torch.Tensor:
+    """Body-frame measurements (B, 3) of the horizontal north field (a unit
+    vector at ``declination`` rad) for attitudes q (B, 4): R^T north,
+    per-element, plus white noise of sigma ``noise``."""
+    declination = torch.as_tensor(declination, dtype=q.dtype, device=q.device)
+    north = torch.stack([torch.cos(declination), torch.sin(declination), torch.zeros_like(declination)], dim=-1)
+    body = rotate_transposed(quat_to_rotmat(q), north)
+    if generator is None:
+        return body
+    return body + noise * _randn(body, body.shape, generator)
+
+
+def distance_sensor_measure(Twc: torch.Tensor, field: ObstacleField, pcfg: PerceptionConfig, max_range=40.0,
+                            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Single-ray forward rangefinders (AirLib DistanceSimple): the planar
+    depth (B,) of the central ray of an 8x8 render, capped at max_range."""
+    d = render_depth(Twc, field, pcfg, height=8, width=8, generator=generator)
+    return torch.clamp_max(d[:, 4, 4], max_range)
+
+
+class LidarScan(NamedTuple):
+    """One lidar update of B sensors.  ``points`` are world coordinates,
+    (B, C, Ppc, 3); ``mask`` is False where a ray hit nothing within range
+    (the reference omits those points; fixed shapes need the mask);
+    ``azimuth_deg`` (B,) is the head phase to carry into the next update."""
+
+    points: torch.Tensor  # (B, C, Ppc, 3)
+    mask: torch.Tensor  # (B, C, Ppc) bool
+    ranges: torch.Tensor  # (B, C, Ppc), inf where no hit
+    azimuth_deg: torch.Tensor  # (B,)
+
+
+def lidar_scan(Twb: torch.Tensor, field: ObstacleField, cfg: LidarConfig, azimuth0_deg,
+               generator: torch.Generator | None = None) -> LidarScan:
+    """One rotating-lidar update against the analytic obstacle field, for
+    body poses Twb (B, 4, 4) and head phases ``azimuth0_deg`` (B,) or a
+    scalar.
+
+    ``points_per_second / update_frequency`` rays per update, split evenly
+    over ``number_of_channels`` lasers whose elevations span
+    [vertical_fov_lower, vertical_fov_upper]; the head sweeps
+    ``rotations_per_second * 360 / update_frequency`` degrees from the
+    carried phase, wrapped into the horizontal FOV.  Rays beyond
+    ``cfg.range`` are masked out.  The sensor sits at ``cfg.rel_position``
+    on the body with the body's orientation.  The world rays are
+    per-element sums of products, never a matmul (TF32 cannot touch them).
+    With a generator and ``range_std_dev > 0``, range noise is added."""
+    b, dtype, dev = Twb.shape[0], Twb.dtype, Twb.device
+    c, ppc = cfg.number_of_channels, cfg.points_per_channel
+    az0 = torch.as_tensor(azimuth0_deg, dtype=dtype, device=dev).expand(b)
+
+    elev = torch.linspace(cfg.vertical_fov_lower, cfg.vertical_fov_upper, c, dtype=dtype, device=dev)
+    sweep = 360.0 * cfg.rotations_per_second / cfg.update_frequency
+    fov_span = cfg.horizontal_fov_end - cfg.horizontal_fov_start
+    az = az0[:, None] + torch.arange(ppc, dtype=dtype, device=dev) * (sweep / ppc)  # (B, Ppc)
+    az = cfg.horizontal_fov_start + torch.remainder(az - cfg.horizontal_fov_start, fov_span)
+    az_next = cfg.horizontal_fov_start + torch.remainder(az0 + sweep - cfg.horizontal_fov_start, fov_span)
+
+    deg = torch.pi / 180.0
+    el_r = (elev * deg)[None, :, None]  # (1, C, 1)
+    az_r = (az * deg)[:, None, :]  # (B, 1, Ppc)
+    ones = torch.ones((b, c, ppc), dtype=dtype, device=dev)
+    dl = torch.stack([torch.cos(el_r) * torch.cos(az_r) * ones, torch.cos(el_r) * torch.sin(az_r) * ones,
+                      torch.sin(el_r) * ones], dim=-1).reshape(b, -1, 3)  # (B, R, 3) unit, sensor frame
+
+    R_wb = Twb[:, :3, :3]
+    rel = torch.tensor(cfg.rel_position, dtype=dtype, device=dev)
+    o = Twb[:, :3, 3] + rotate(R_wb, rel)
+    dirs = torch.stack([dl[..., 0] * R_wb[:, i, 0:1] + dl[..., 1] * R_wb[:, i, 1:2] + dl[..., 2] * R_wb[:, i, 2:3]
+                        for i in range(3)], dim=-1)  # (B, R, 3) world
+
+    t_cyl = torch.where(field.cyl_mask[:, None, :], _ray_cylinder(o, dirs, field.cyl_xy, field.cyl_r), torch.inf)
+    t_sph = torch.where(field.sph_mask[:, None, :], _ray_sphere(o, dirs, field.sph_c, field.sph_r), torch.inf)
+    dz = dirs[..., 2]
+    t_gnd = torch.where(dz < -1e-6, -o[:, 2:3] / dz, torch.inf)
+    t = torch.minimum(torch.minimum(torch.amin(t_cyl, dim=-1), torch.amin(t_sph, dim=-1)), t_gnd)
+    if generator is not None and cfg.range_std_dev > 0.0:
+        t = t + cfg.range_std_dev * _randn(t, t.shape, generator)
+
+    hit = torch.isfinite(t) & (t <= cfg.range)
+    pts = o[:, None, :] + torch.where(hit, t, 0.0)[..., None] * dirs
+    return LidarScan(points=pts.reshape(b, c, ppc, 3), mask=hit.reshape(b, c, ppc),
+                     ranges=torch.where(hit, t, torch.inf).reshape(b, c, ppc), azimuth_deg=az_next)

@@ -16,9 +16,13 @@ twins of the per-phase kernels.  Each iteration:
 4. reg update: x0.2 on accept, x8 on reject.
 
 ``iters`` updates are followed by one more linearize + sweep whose projected
-gradient certifies the returned iterate (``grad_norm``).  The dynamics are
-LTI without drag, so one affine map (Ad, Bd, cvec) serves every stage,
-iteration and candidate.
+gradient certifies the returned iterate (``grad_norm``).  Without drag the
+dynamics are LTI, so one affine map (Ad, Bd, cvec) serves every stage,
+iteration and candidate.  With drag (``sp.dyn.use_drag``) the solve takes
+the reference's generic path: each iteration takes per-stage Jacobians of
+the nonlinear ``rk4_step`` by forward-mode differentiation, the sweep runs
+with stage-varying A, B, and the rollouts and the line search step through
+``rk4_step``.
 
 Routing (:func:`solve_batched`): ``SolverHyper.fuse=True`` (the default) runs
 the whole solve as one CUDA kernel; ``fuse=False`` runs the per-phase loop
@@ -26,8 +30,8 @@ the whole solve as one CUDA kernel; ``fuse=False`` runs the per-phase loop
 (``solver/backward_cuda.py``) and the line-search kernel
 (``solver/forward_cuda.py``) per iteration.  A CUDA float32 call launches
 the kernels; a CPU call, or a CUDA call in another dtype, runs the plain
-twins (the reference's routing by dtype).  The drag path belongs to a
-later slice.
+twins (the reference's routing by dtype).  A drag problem runs the plain
+generic path on any device: the reference routes it to no kernel.
 """
 
 from __future__ import annotations
@@ -211,13 +215,19 @@ def _linearize(problem: MPCProblem, xs, us, sp: SolverParams):
     return cx, cxx, lu, luu
 
 
+def _row_times(v, M):
+    """v (B, m) times M: one (m, n) matrix shared by the batch, or (B, m, n)."""
+    return v @ M if M.dim() == 2 else (v[:, None, :] @ M)[:, 0]
+
+
 def riccati_backward_plain(Ad, Bd, luu, u_lower, u_upper, cx, cxx, lu, us, reg, bq_iters: int = 4):
     """Backward Riccati sweep with per-stage box QPs over the batch: the
     plain twin of the sweep kernel (``solver/backward_cuda.py``), with the
     arguments of ``avoid_mpc_tpu``'s ``riccati_backward_batched``.
 
     Ad (10,10), Bd (10,4), luu (4,4), u_lower / u_upper (4,), cx (B,N,10),
-    cxx (B,N,10,10), lu (B,N,4), us (B,N,4), reg (B,).  The carry
+    cxx (B,N,10,10), lu (B,N,4), us (B,N,4), reg (B,).  The drag path
+    passes per-stage Jacobians instead, Ad (B,N,10,10) and Bd (B,N,10,4).  The carry
     (V_x, V_xx) is the value expansion at node k+1 without that node's state
     cost, which each stage adds first.  Levenberg reg: reg I through B damps
     the value curvature, and a direct reg I on Quu keeps the QP positive
@@ -236,16 +246,18 @@ def riccati_backward_plain(Ad, Bd, luu, u_lower, u_upper, cx, cxx, lu, us, reg, 
     dV1 = torch.zeros(b, dtype=dtype, device=us.device)
     dV2 = torch.zeros_like(dV1)
     pg = torch.zeros_like(dV1)
+    per_stage = Ad.dim() == 4
     for k in reversed(range(n)):
+        A, Bm = (Ad[:, k], Bd[:, k]) if per_stage else (Ad, Bd)
         u_k = us[:, k]
         Wx = Vx + cx[:, k]
         Wxx = Vxx + cxx[:, k]
-        Qx = Wx @ Ad
-        Qu = lu[:, k] + Wx @ Bd
-        Qxx = Ad.T @ Wxx @ Ad
-        BtW = Bd.T @ (Wxx + reg3 * eye)
-        Qux = BtW @ Ad
-        Quu = luu + BtW @ Bd + reg3 * eye_u
+        Qx = _row_times(Wx, A)
+        Qu = lu[:, k] + _row_times(Wx, Bm)
+        Qxx = A.transpose(-1, -2) @ Wxx @ A
+        BtW = Bm.transpose(-1, -2) @ (Wxx + reg3 * eye)
+        Qux = BtW @ A
+        Quu = luu + BtW @ Bm + reg3 * eye_u
         Quu = 0.5 * (Quu + Quu.transpose(-1, -2))
 
         k_ff, free = boxqp(Quu, Qu, u_lower - u_k, u_upper - u_k, torch.zeros_like(u_k), iters=bq_iters)
@@ -271,23 +283,41 @@ def _lti_step(x, u, Ad, Bd, cvec):
     return x @ Ad.T + u @ Bd.T + cvec
 
 
-def _rollout_lti(x0, us, Ad, Bd, cvec):
+def _rollout(x0, us, dyn_step):
     xs = [x0]
     x = x0
     for k in range(us.shape[1]):
-        x = _lti_step(x, us[:, k], Ad, Bd, cvec)
+        x = dyn_step(x, us[:, k])
         xs.append(x)
     return torch.stack(xs, dim=1)
 
 
-def _closed_loop_rollout(x0, us, xs_ref, k_ff, K, alpha, u_lower, u_upper, Ad, Bd, cvec):
+def _rollout_lti(x0, us, Ad, Bd, cvec):
+    return _rollout(x0, us, lambda x, u: _lti_step(x, u, Ad, Bd, cvec))
+
+
+def _stage_jacobians(xs, us, sp: SolverParams):
+    """Per-stage Jacobians of the nonlinear transition at (xs[:, k], us[:, k]):
+    A (B,N,10,10), B (B,N,10,4), forward-mode over batch and stage (the
+    reference's ``vmap(jacfwd(rk4_step))``)."""
+    b, n, nu = us.shape
+    nx = xs.shape[-1]
+
+    def f(x, u):
+        return rk4_step(x, u, sp.dt, sp.dyn)
+
+    A, Bm = torch.func.vmap(torch.func.jacfwd(f, argnums=(0, 1)))(xs[:, :-1].reshape(-1, nx), us.reshape(-1, nu))
+    return A.reshape(b, n, nx, nx), Bm.reshape(b, n, nx, nu)
+
+
+def _closed_loop_rollout(x0, us, xs_ref, k_ff, K, alpha, u_lower, u_upper, dyn_step):
     """Forward pass with feedback: u = clip(u_k + a k_k + K_k (x - x_k))."""
     x = x0
     xs, us_new = [x0], []
     for k in range(us.shape[1]):
         u = us[:, k] + alpha * k_ff[:, k] + torch.einsum("bij,bj->bi", K[:, k], x - xs_ref[:, k])
         u = torch.clamp(u, u_lower, u_upper)
-        x = _lti_step(x, u, Ad, Bd, cvec)
+        x = dyn_step(x, u)
         xs.append(x)
         us_new.append(u)
     return torch.stack(xs, dim=1), torch.stack(us_new, dim=1)
@@ -320,12 +350,20 @@ def line_search_plain(
         u_hover[2] = GRAVITY
     cp = CostParams(q_goal=q_goal, q_path=q_path, q_u=q_u, collide_lambda=lam, drone_radius=radius,
                     u_hover=u_hover, lam_omni=lam_omni, margin_v=margin_v)
+    return _line_search(lambda x, u: _lti_step(x, u, Ad, Bd, cvec), x0, us, xs_ref, kff, K, u_lower, u_upper,
+                        ref, obstacles, target, cp, dV1, dV2, cost_old, n_alphas)
+
+
+def _line_search(dyn_step, x0, us, xs_ref, kff, K, u_lower, u_upper, ref, obstacles, target, cp: CostParams,
+                 dV1, dV2, cost_old, n_alphas: int):
+    """:func:`line_search_plain` with the rollouts stepping through
+    ``dyn_step``: the LTI map, or the drag path's ``rk4_step``."""
     best_cost = torch.full_like(cost_old, float("inf"))
     best_us, best_xs = us, xs_ref
     any_ok = torch.zeros_like(cost_old, dtype=torch.bool)
     for i in range(n_alphas):
         alpha = 2.0**-i
-        xs_a, us_a = _closed_loop_rollout(x0, us, xs_ref, kff, K, alpha, u_lower, u_upper, Ad, Bd, cvec)
+        xs_a, us_a = _closed_loop_rollout(x0, us, xs_ref, kff, K, alpha, u_lower, u_upper, dyn_step)
         c = trajectory_cost(xs_a, us_a, ref, obstacles, target, cp)
         expected = alpha * dV1 + (alpha * alpha) * dV2
         ok = (cost_old - c) > 1e-4 * torch.clamp_min(-expected, 0.0)
@@ -340,30 +378,46 @@ def line_search_plain(
 def _solve_loop(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper, backward, line_search):
     """The XLA ``solve`` schedule over the batch, with the sweep and the
     line search passed in (their plain twins or their kernel wrappers):
-    the initial LTI rollout and its cost, then ``iters + 1`` passes of
+    the initial rollout and its cost, then ``iters + 1`` passes of
     linearize + sweep, the first ``iters`` followed by the line search and
-    the reg update.  No early exit and no host synchronisation."""
-    if sp.dyn.use_drag:
-        raise NotImplementedError("the drag (nonlinear dynamics) solve path is not ported yet")
+    the reg update.  No early exit and no host synchronisation.  With drag
+    the loop takes the generic path (the module note) and ignores
+    ``backward`` and ``line_search``: no kernel serves it."""
     dtype = us_init.dtype
     cp = sp.cost
-    Ad, Bd, cvec = _affine_dynamics(sp, dtype)
+    drag = sp.dyn.use_drag
+    if drag:
+        def dyn_step(x, u):
+            return rk4_step(x, u, sp.dt, sp.dyn)
+    else:
+        Ad, Bd, cvec = _affine_dynamics(sp, dtype)
+
+        def dyn_step(x, u):
+            return _lti_step(x, u, Ad, Bd, cvec)
     us = torch.clamp(us_init, sp.u_lower, sp.u_upper)
-    xs = _rollout_lti(problems.x0, us, Ad, Bd, cvec)
+    xs = _rollout(problems.x0, us, dyn_step)
     cost = _total_cost(problems, xs, us, cp)
     reg = torch.full_like(cost, hp.reg_init)
     pg = torch.full_like(cost, float("inf"))
     for i in range(hp.iters + 1):
+        if drag:
+            Ad, Bd = _stage_jacobians(xs, us, sp)
         cx, cxx, lu, luu = _linearize(problems, xs, us, sp)
-        k_ff, K, dV1, dV2, pg = backward(Ad, Bd, luu, sp.u_lower, sp.u_upper, cx, cxx, lu, us, reg, hp.boxqp_iters)
+        sweep = riccati_backward_plain if drag else backward
+        k_ff, K, dV1, dV2, pg = sweep(Ad, Bd, luu, sp.u_lower, sp.u_upper, cx, cxx, lu, us, reg, hp.boxqp_iters)
         if i == hp.iters:  # certificate pass: no update
             break
-        us_new, xs_new, cost, any_ok = line_search(
-            Ad, Bd, cvec, sp.u_lower, sp.u_upper, cp.q_goal, cp.q_path, cp.q_u, cp.collide_lambda,
-            cp.drone_radius, problems.x0, us, xs, k_ff, K, problems.ref, problems.obstacles,
-            problems.target, dV1, dV2, cost, n_alphas=hp.n_alphas, lam_omni=cp.lam_omni,
-            margin_v=cp.margin_v, u_hover=cp.u_hover,
-        )
+        if drag:
+            us_new, xs_new, cost, any_ok = _line_search(
+                dyn_step, problems.x0, us, xs, k_ff, K, sp.u_lower, sp.u_upper, problems.ref, problems.obstacles,
+                problems.target, cp, dV1, dV2, cost, hp.n_alphas)
+        else:
+            us_new, xs_new, cost, any_ok = line_search(
+                Ad, Bd, cvec, sp.u_lower, sp.u_upper, cp.q_goal, cp.q_path, cp.q_u, cp.collide_lambda,
+                cp.drone_radius, problems.x0, us, xs, k_ff, K, problems.ref, problems.obstacles,
+                problems.target, dV1, dV2, cost, n_alphas=hp.n_alphas, lam_omni=cp.lam_omni,
+                margin_v=cp.margin_v, u_hover=cp.u_hover,
+            )
         # keep the incumbent where nothing was accepted (the line-search
         # kernel, as the TPU one, returns its alpha = 0 rollout there)
         keep = any_ok[:, None, None]
@@ -399,7 +453,8 @@ def solve_phased(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHype
     launches the kernels; the CPU, or another dtype on CUDA, runs
     :func:`solve_plain` (the reference's routing by dtype,
     ``device.kernel_route``).  Float32 matmuls run in full float32
-    (:func:`f32_matmul_highest`)."""
+    (:func:`f32_matmul_highest`).  A drag problem launches no kernel: the
+    loop takes the generic path for it."""
     if not kernel_route(us_init):
         return solve_plain(problems, us_init, sp, hp)
     from avoid_mpc_torch.solver.backward_cuda import riccati_backward  # imports this module
@@ -417,9 +472,10 @@ def solve_batched(
     runs through ``solver/sqp_cuda.sqp_solve`` (CUDA float32 launches the
     fused kernel); ``fuse=False`` runs :func:`solve_phased`.  The CPU, or
     another dtype on CUDA, runs :func:`solve_plain`, as the reference
-    routes by dtype (``device.kernel_route``).  Float32 matmuls run in
-    full float32 (:func:`f32_matmul_highest`)."""
-    if not kernel_route(us_init):
+    routes by dtype (``device.kernel_route``), and so does a drag problem
+    on any device (the reference routes it to no kernel).  Float32 matmuls
+    run in full float32 (:func:`f32_matmul_highest`)."""
+    if not kernel_route(us_init) or sp.dyn.use_drag:
         return solve_plain(problems, us_init, sp, hp)
     if not hp.fuse:
         return solve_phased(problems, us_init, sp, hp)

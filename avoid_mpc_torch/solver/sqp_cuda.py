@@ -141,9 +141,13 @@ def pack_constants(sp: SolverParams, Ad, Bd, cvec) -> torch.Tensor:
 def sqp_solve(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper = SolverHyper()) -> SolveResult:
     """Batched solve; the semantics of :func:`solve_plain` up to the
     per-scenario exit.  x0 (B,10), us_init (B,N,4), ref (B,N,10),
-    obstacles (B,N,K,3), target (B,10)."""
+    obstacles (B,N,K,3), target (B,10).  The kernel is LTI only: on CUDA
+    a drag problem is refused (:func:`solve_batched` routes it to
+    :func:`solve_plain`, as the reference routes drag to no kernel)."""
     if not us_init.is_cuda:
         return solve_plain(problems, us_init, sp, hp)
+    if sp.dyn.use_drag:
+        raise ValueError("sqp_solve: the kernel is LTI only; solve_batched runs a drag problem on the plain path")
     dev = us_init.device
     x0, ref, obs, target = problems
     tensors = (x0, us_init, ref, obs, target, sp.u_lower)
@@ -153,8 +157,6 @@ def sqp_solve(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper =
         raise TypeError("sqp_solve: the CUDA kernel takes float32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("sqp_solve: inputs must be contiguous")
-    if sp.dyn.use_drag:
-        raise NotImplementedError("the drag solve path has no CUDA kernel yet")
     b, n, nu = us_init.shape
     k_obs = obs.shape[2]
     if (nu != NU or tuple(x0.shape) != (b, NX) or tuple(ref.shape) != (b, n, NX)

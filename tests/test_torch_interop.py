@@ -227,3 +227,21 @@ def test_closed_loop_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch)
                  lambda: verify_world.gate()):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+def test_boundary_scan_covers_the_vehicle_link_slice():
+    """The vehicle link's modules are scanned and imported too; importing
+    them builds nothing and loads no copy of the host runtime."""
+    scanned = {str(p.relative_to(PACKAGE)) for p in PACKAGE.rglob("*.py")}
+    for mod in ("runtime/__init__.py", "runtime/native.py", "runtime/mav_msgs.py", "runtime/mav_input.py",
+                "runtime/tlog_replay.py", "control/home_frame.py", "safety/__init__.py", "safety/geofence.py",
+                "utils/frame_assist.py", "utils/stream_stats.py", "sim/rotor.py", "tools/vehicle_link.py"):
+        assert mod in scanned, mod
+    code = ("import avoid_mpc_torch.runtime as r, avoid_mpc_torch.runtime.native as n, "
+            "avoid_mpc_torch.tools.vehicle_link\n"
+            "assert n._lib is None and n._error is None\n"
+            "assert n.BUILD_DIR.name == 'host_runtime' and n.RUNTIME_DIR.name == 'runtime'\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    r = subprocess.run([sys.executable, "-S", "-c", f"import sys; sys.path[:0] = {sys.path!r}\n" + code],
+                       cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

@@ -278,12 +278,30 @@ def test_wrappers_route_cpu_tensors_to_plain():
     assert (backward_cuda.riccati_backward.launches, forward_cuda.line_search.launches) == (n_bw, n_ls)
 
 
-def test_phased_drag_path_not_ported_raises():
-    arrays, us0 = solver_problems(1, seed=0)
+def test_phased_drag_path_not_ported_raises(monkeypatch):
+    """The per-phase route of a drag problem.  The drag path once raised
+    here; it now runs the reference's generic path: on the kernel route
+    the loop calls neither kernel wrapper and computes what the plain
+    solve does, which ``tests/test_torch_solver.py`` holds against the
+    JAX drag solve."""
+    arrays, us0 = solver_problems(2, seed=0)
     sp = tilqr.SolverParams.from_config(MPCConfig(mpc_T=0.33, use_drag_coefficient=True), dtype=torch.float64,
                                         device="cpu")
-    with pytest.raises(NotImplementedError):
-        tilqr.solve_batched(tilqr.MPCProblem(*(_t(a) for a in arrays)), _t(us0), sp, tilqr.SolverHyper(fuse=False))
+    prob = tilqr.MPCProblem(*(_t(a) for a in arrays))
+    want = tilqr.solve_plain(prob, _t(us0), sp, tilqr.SolverHyper(iters=3))
+    calls = []
+    monkeypatch.setattr(tilqr, "kernel_route", lambda t: True)
+    monkeypatch.setattr(tilqr, "solve_plain", lambda *a: calls.append("plain solve"))
+    monkeypatch.setattr(backward_cuda, "riccati_backward", lambda *a, **k: calls.append("sweep kernel"))
+    monkeypatch.setattr(forward_cuda, "line_search", lambda *a, **k: calls.append("line-search kernel"))
+    got = tilqr.solve_phased(prob, _t(us0), sp, tilqr.SolverHyper(iters=3, fuse=False))
+    assert calls == []
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    monkeypatch.undo()
+    lti = tilqr.solve_plain(prob, _t(us0), tilqr.SolverParams.from_config(CFG, dtype=torch.float64, device="cpu"),
+                            tilqr.SolverHyper(iters=3))
+    assert float((lti.xs - got.xs).abs().max()) > 1e-4  # the drag changes the solution
 
 
 def test_work_counts_grow_as_expected():

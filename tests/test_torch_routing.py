@@ -45,12 +45,19 @@ def test_dispatchers_follow_the_route(monkeypatch, route):
     q, p = torch.zeros(1, 2, 3, dtype=torch.float64), torch.ones(1, 5, 3, dtype=torch.float64)
     tknn.knn(q, p, torch.ones(1, 5, dtype=torch.bool), 1)
     us = torch.zeros(1, 3, 4, dtype=torch.float64)
-    ilqr.solve_batched(None, us, None, ilqr.SolverHyper())
+    lti, drag = (SimpleNamespace(dyn=SimpleNamespace(use_drag=d)) for d in (False, True))
+    ilqr.solve_batched(None, us, lti, ilqr.SolverHyper())
     if not route:
-        ilqr.solve_phased(None, us, None, ilqr.SolverHyper(fuse=False))
+        ilqr.solve_phased(None, us, lti, ilqr.SolverHyper(fuse=False))
         assert calls == ["plain solve", "plain solve"]
     else:
         assert calls == ["knn kernel", "sqp kernel", "plain solve"]
+    # a drag problem takes the plain solve on either route, fused or not
+    # (the reference routes it to no kernel)
+    calls.clear()
+    ilqr.solve_batched(None, us, drag, ilqr.SolverHyper())
+    ilqr.solve_batched(None, us, drag, ilqr.SolverHyper(fuse=False))
+    assert calls == ["plain solve", "plain solve"]
 
 
 def test_float64_knn_on_the_cpu_matches_the_jax_float64_path():

@@ -114,12 +114,65 @@ def test_solve_respects_bounds():
     assert np.any(np.isclose(us, lo) | np.isclose(us, hi))  # bounds active
 
 
-def test_drag_path_not_ported_raises():
-    arrays, us0 = build_problems(1)
-    cfg = MPCConfig(mpc_T=0.2, use_drag_coefficient=True)
-    sp = tilqr.SolverParams.from_config(cfg, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tilqr.solve_batched(_torch_problem(arrays), torch.as_tensor(us0), sp)
+DRAG_CFG, DRAG_JCFG = MPCConfig(mpc_T=0.2, use_drag_coefficient=True), JaxMPCConfig(mpc_T=0.2, use_drag_coefficient=True)
+
+
+@pytest.fixture(scope="module")
+def jax_drag_reference():
+    """The JAX generic (drag) solve (per-stage jacfwd Jacobians, rk4
+    rollouts) one problem at a time, and its per-stage Jacobians
+    ``vmap(jacfwd(rk4_step))`` at random points, from one jit; and the
+    port's LTI solve of the same problems."""
+    arrays, us0 = build_problems(4, seed=5)
+    rng = np.random.default_rng(2)
+    xs = rng.normal(size=(3, N + 1, 10))
+    xs[..., 9] += 1.0  # keep the thrust direction away from zero
+    us = rng.normal(size=(3, N, 4)) + np.array([0.0, 0.0, 9.81, 0.0])
+    sp = jilqr.SolverParams.from_config(DRAG_JCFG, dtype=jnp.float64)
+    assert sp.dyn.use_drag
+    hp = jilqr.SolverHyper(**HP)
+
+    def step(x, u):
+        return jilqr.rk4_step(x, u, sp.dt, sp.dyn)
+
+    fn = jax.jit(lambda p, u, x, v: (jilqr.solve(p, u, sp, hp), jax.vmap(jax.jacfwd(step, argnums=(0, 1)))(x, v)))
+    points = jnp.asarray(xs[:, :-1].reshape(-1, 10)), jnp.asarray(us.reshape(-1, 4))
+    outs = [fn(jilqr.MPCProblem(*(jnp.asarray(a[i]) for a in arrays)), jnp.asarray(us0[i]), *points)
+            for i in range(len(us0))]
+    res = jax.tree.map(lambda *leaves: np.stack([np.asarray(x) for x in leaves]), *(o[0] for o in outs))
+    jac = tuple(np.asarray(m).reshape(3, N, 10, -1) for m in outs[0][1])
+    lti = tilqr.solve_batched(_torch_problem(arrays), torch.as_tensor(us0),
+                              tilqr.SolverParams.from_config(CFG, dtype=torch.float64, device="cpu"),
+                              tilqr.SolverHyper(**HP))
+    return arrays, us0, res, (xs, us, jac), lti.xs
+
+
+@pytest.mark.parametrize("entry", ["solve_batched", "solve_phased", "sqp_solve"])
+def test_drag_solve_matches_jax_f64(jax_drag_reference, entry):
+    """Every entry takes the plain generic path for a drag problem on the
+    CPU, and it tracks the JAX generic solve at the LTI tolerances.  (On
+    CUDA the fused wrapper ``sqp_solve`` refuses drag, which
+    ``chip_smoke.py`` checks; the two dispatchers route it here.)"""
+    arrays, us0, want, _, lti_xs = jax_drag_reference
+    sp = tilqr.SolverParams.from_config(DRAG_CFG, dtype=torch.float64, device="cpu")
+    fn = {"solve_batched": tilqr.solve_batched, "solve_phased": tilqr.solve_phased, "sqp_solve": sqp_solve}[entry]
+    launches = sqp_solve.launches
+    got = fn(_torch_problem(arrays), torch.as_tensor(us0), sp, tilqr.SolverHyper(**HP))
+    assert sqp_solve.launches == launches
+    np.testing.assert_allclose(got.us.numpy(), want.us, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got.xs.numpy(), want.xs, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got.cost.numpy(), want.cost, rtol=1e-9)
+    np.testing.assert_allclose(got.grad_norm.numpy(), want.grad_norm, rtol=1e-6, atol=1e-9)
+    np.testing.assert_array_equal(got.converged.numpy(), want.converged)
+    assert float((lti_xs - got.xs).abs().max()) > 1e-4  # the drag actually changes the solution
+
+
+def test_drag_stage_jacobians_match_jax_jacfwd(jax_drag_reference):
+    xs, us, (want_A, want_B) = jax_drag_reference[3]
+    sp = tilqr.SolverParams.from_config(DRAG_CFG, dtype=torch.float64, device="cpu")
+    A, B = tilqr._stage_jacobians(torch.as_tensor(xs), torch.as_tensor(us), sp)
+    np.testing.assert_allclose(A.numpy(), want_A, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(B.numpy(), want_B, rtol=1e-10, atol=1e-12)
 
 
 def test_hover_warm_start():
