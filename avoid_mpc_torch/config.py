@@ -22,7 +22,10 @@ import numpy as np
 STATE_DIM = 10
 # Control layout: [ax_cmd, ay_cmd, az_cmd, yaw_dot]
 CONTROL_DIM = 4
+OBSTACLE_DIM = 3
 GRAVITY = 9.81
+# weights vector layout: 10 goal + 10 path + 4 control + 1 collide_lambda
+WEIGHTS_DIM = 2 * STATE_DIM + CONTROL_DIM + 1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -123,6 +123,13 @@ def goal_cost(x: torch.Tensor, target: torch.Tensor, cp: CostParams) -> torch.Te
     return torch.sum(delta * delta * cp.q_goal, dim=-1)
 
 
+def stage_state_cost(x: torch.Tensor, ref: torch.Tensor, obstacles: torch.Tensor, cp: CostParams) -> torch.Tensor:
+    """Interior-node state cost: path gap + collision (node j = stage k+1,
+    using ref / obstacle slot k).  x: (..., 10), ref: (..., 10),
+    obstacles: (..., K, 3)."""
+    return path_gap_cost(x, ref, cp) + collision_cost(x, obstacles, cp, radius=node_radius(ref, cp))
+
+
 def trajectory_cost(xs, us, ref, obstacles, target, cp: CostParams) -> torch.Tensor:
     """Total objective over one horizon, batched over leading dims.
 

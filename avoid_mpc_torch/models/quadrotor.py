@@ -112,4 +112,12 @@ def rollout(x0: torch.Tensor, us: torch.Tensor, dt, params: DynamicsParams) -> t
     return torch.stack(xs, dim=-2)
 
 
+def state_names() -> list[str]:
+    return ["px", "py", "pz", "yaw", "vx", "vy", "vz", "ax", "ay", "az"]
+
+
+def control_names() -> list[str]:
+    return ["ax_cmd", "ay_cmd", "az_cmd", "yaw_dot"]
+
+
 assert STATE_DIM == 10 and CONTROL_DIM == 4

@@ -1,10 +1,6 @@
-"""A copy of the generated MAVLink dialect table
-(``avoid_mpc_tpu/runtime/mav_msgs.py``, written by
-``avoid_mpc_tpu/tools/gen_mavlink_table.py``): wire struct formats, field
-names in serialization order, lengths and CRC_EXTRAs.  The port keeps its
-own copy so it imports nothing of the JAX package; do not edit it by hand.
-``tests/test_torch_runtime.py`` holds it equal to the original field for
-field.
+"""GENERATED by avoid_mpc_torch/tools/gen_mavlink_table.py — do not
+edit.  Message table for the runtime's MAVLink dialect: wire struct
+formats, field names (serialization order), lengths, CRC_EXTRAs.
 """
 
 from typing import NamedTuple

@@ -1,5 +1,5 @@
 """ctypes binding of the repo's C++ host runtime (``runtime/*.cpp``): the
-port's own copy of ``avoid_mpc_tpu/runtime/native.py:1-704``.
+port's own copy of ``avoid_mpc_tpu/runtime/native.py``.
 
 - :class:`FrameRing`: the lock-free single-producer ring of fixed-size
   sensor frames (depth images) between a sensor thread and the loop that
@@ -11,7 +11,12 @@ port's own copy of ``avoid_mpc_tpu/runtime/native.py:1-704``.
 - :class:`MavlinkCodec`: MAVLink v2 pack and parse;
 - :class:`HostKDTree`: a 3-D KD-tree for k-NN on the host;
 - :class:`Scheduler`: fixed-rate task threads with overrun and latency
-  accounting.
+  accounting;
+- :class:`MavFtpServer` / :class:`MavFtpClient`: MAVLink-FTP over a
+  :class:`MavConnection` (list, get, put, remove, mkdir, rmdir, crc32);
+- :class:`MavVideoServer` / :class:`MavVideoClient`: image streaming over
+  DATA_TRANSMISSION_HANDSHAKE + ENCAPSULATED_DATA (:class:`VideoFrame`);
+- :class:`AdHocConnection`: raw datagrams to a peer that speaks no MAVLink.
 
 The library is compiled at first use, with the Makefile's flags minus
 ``-march=native`` (``g++ -O3 -fPIC -std=c++17``, linked ``-shared
@@ -166,6 +171,35 @@ def _declare(lib) -> None:
     sig("mav_log_reader_next", c.c_int, c.c_void_p, c.POINTER(c.c_uint64), c.POINTER(c.c_uint32), c.c_char_p,
         c.POINTER(u8))
     sig("mav_log_reader_close", None, c.c_void_p)
+
+    sig("mav_ftp_server_create", c.c_void_p, c.c_void_p, c.c_char_p)
+    sig("mav_ftp_server_ops", c.c_uint64, c.c_void_p)
+    sig("mav_ftp_server_destroy", None, c.c_void_p)
+    sig("mav_ftp_client_create", c.c_void_p, c.c_void_p)
+    sig("mav_ftp_client_destroy", None, c.c_void_p)
+    sig("mav_ftp_list", c.c_int, c.c_void_p, c.c_char_p, c.c_char_p, c.c_int, c.c_double)
+    for f in ("mav_ftp_get", "mav_ftp_put"):
+        sig(f, c.c_long, c.c_void_p, c.c_char_p, c.c_char_p, c.c_double)
+    for f in ("mav_ftp_remove", "mav_ftp_mkdir", "mav_ftp_rmdir"):
+        sig(f, c.c_int, c.c_void_p, c.c_char_p, c.c_double)
+    sig("mav_ftp_crc32", c.c_int, c.c_void_p, c.c_char_p, c.POINTER(c.c_uint32), c.c_double)
+
+    ip, fp = c.POINTER(c.c_int), c.POINTER(c.c_float)
+    sig("mav_video_server_create", c.c_void_p, c.c_void_p)
+    sig("mav_video_server_has_request", c.c_int, c.c_void_p, ip, fp, ip)
+    sig("mav_video_server_send_frame", c.c_int, c.c_void_p, c.c_char_p, c.c_uint32, c.c_uint16, c.c_uint16, u8, u8)
+    sig("mav_video_server_destroy", None, c.c_void_p)
+    sig("mav_video_client_create", c.c_void_p, c.c_void_p)
+    sig("mav_video_client_request", c.c_int, c.c_void_p, c.c_int, c.c_float, c.c_int, u8, u8)
+    sig("mav_video_client_read_frame", c.c_int, c.c_void_p, c.c_char_p, c.c_int, ip, ip, ip, ip, fp)
+    sig("mav_video_client_destroy", None, c.c_void_p)
+
+    sig("adhoc_create_local", c.c_void_p, c.c_int)
+    sig("adhoc_create_remote", c.c_void_p, c.c_char_p, c.c_int)
+    sig("adhoc_send", c.c_int, c.c_void_p, c.c_char_p, c.c_int)
+    sig("adhoc_recv", c.c_int, c.c_void_p, c.c_char_p, c.c_int, c.c_double)
+    sig("adhoc_received", c.c_uint64, c.c_void_p)
+    sig("adhoc_destroy", None, c.c_void_p)
 
 
 def load():
@@ -541,3 +575,240 @@ def read_tlog(path: str):
             yield int(ts.value), int(msgid.value), payload.raw[: plen.value]
     finally:
         lib.mav_log_reader_close(h)
+
+
+class _Handle:
+    """A C object owned by this binding: ``close`` (and the finalizer)
+    calls its destroy function once."""
+
+    _destroy = ""
+
+    def close(self):
+        if getattr(self, "_ptr", None):
+            getattr(self._lib, self._destroy)(self._ptr)
+            self._ptr = None
+
+    def __del__(self):
+        self.close()
+
+
+class MavFtpServer(_Handle):
+    """MAVLink-FTP responder rooted at a local directory, serving list /
+    read / write / remove / mkdir / rmdir / crc32 over
+    FILE_TRANSFER_PROTOCOL on an existing :class:`MavConnection` (the
+    vehicle's side; ``runtime/mavlink_ftp.cpp``)."""
+
+    _destroy = "mav_ftp_server_destroy"
+
+    def __init__(self, conn: MavConnection, root: str):
+        self._lib, self._conn = conn._lib, conn  # the C object uses the connection: keep it alive
+        self._ptr = self._lib.mav_ftp_server_create(conn._ptr, str(root).encode())
+        if not self._ptr:
+            raise OSError("mav_ftp_server_create failed (subscriber slots?)")
+
+    def ops_served(self) -> int:
+        return int(self._lib.mav_ftp_server_ops(self._ptr))
+
+
+class MavFtpClient(_Handle):
+    """Blocking MAVLink-FTP client on an existing :class:`MavConnection`
+    (the reference's MavLinkFtpClient: list / get / put / remove / mkdir /
+    rmdir, each a transaction resent on timeout)."""
+
+    _destroy = "mav_ftp_client_destroy"
+
+    def __init__(self, conn: MavConnection):
+        self._lib, self._conn = conn._lib, conn  # the C object uses the connection: keep it alive
+        self._ptr = self._lib.mav_ftp_client_create(conn._ptr)
+        if not self._ptr:
+            raise OSError("mav_ftp_client_create failed (subscriber slots?)")
+
+    def list(self, path: str = "/", timeout_s: float = 3.0):
+        """Directory entries as (kind, name, size) tuples; kind 'D' or 'F'."""
+        buf = ctypes.create_string_buffer(65536)
+        n = self._lib.mav_ftp_list(self._ptr, path.encode(), buf, len(buf), timeout_s)
+        if n < 0:
+            raise OSError(f"ftp list({path}) failed: {n}")
+        out = []
+        for line in buf.value.decode().splitlines():
+            if not line:
+                continue
+            kind, rest = line[0], line[1:]
+            if kind == "F" and "\t" in rest:
+                name, size = rest.rsplit("\t", 1)
+                out.append((kind, name, int(size)))
+            else:
+                out.append((kind, rest, 0))
+        return out
+
+    def get(self, remote: str, local: str, timeout_s: float = 5.0) -> int:
+        """Bytes fetched from ``remote`` into the local file ``local``."""
+        n = self._lib.mav_ftp_get(self._ptr, remote.encode(), str(local).encode(), timeout_s)
+        if n < 0:
+            raise OSError(f"ftp get({remote}) failed: {n}")
+        return int(n)
+
+    def put(self, local: str, remote: str, timeout_s: float = 5.0) -> int:
+        """Bytes written from the local file ``local`` to ``remote``."""
+        n = self._lib.mav_ftp_put(self._ptr, str(local).encode(), remote.encode(), timeout_s)
+        if n < 0:
+            raise OSError(f"ftp put({remote}) failed: {n}")
+        return int(n)
+
+    def _call(self, fn: str, path: str, timeout_s: float):
+        rc = getattr(self._lib, fn)(self._ptr, path.encode(), timeout_s)
+        if rc != 0:
+            raise OSError(f"ftp {fn[8:]}({path}) failed: {rc}")
+
+    def remove(self, path: str, timeout_s: float = 3.0):
+        self._call("mav_ftp_remove", path, timeout_s)
+
+    def mkdir(self, path: str, timeout_s: float = 3.0):
+        self._call("mav_ftp_mkdir", path, timeout_s)
+
+    def rmdir(self, path: str, timeout_s: float = 3.0):
+        self._call("mav_ftp_rmdir", path, timeout_s)
+
+    def crc32(self, path: str, timeout_s: float = 3.0) -> int:
+        """The remote file's standard CRC-32 (``zlib.crc32``)."""
+        out = ctypes.c_uint32()
+        rc = self._lib.mav_ftp_crc32(self._ptr, path.encode(), ctypes.byref(out), timeout_s)
+        if rc != 0:
+            raise OSError(f"ftp crc32({path}) failed: {rc}")
+        return int(out.value)
+
+
+class VideoFrame:
+    """One reassembled image (the reference's MavLinkVideoFrame)."""
+
+    __slots__ = ("data", "width", "height", "type", "quality", "progress")
+
+    def __init__(self, data, width, height, type_, quality, progress):
+        self.data = data
+        self.width = width
+        self.height = height
+        self.type = type_
+        self.quality = quality
+        self.progress = progress
+
+
+class MavVideoServer(_Handle):
+    """The vehicle's video streamer on an existing :class:`MavConnection`
+    (the reference's MavLinkVideoServer): poll :meth:`has_request` for
+    DO_CONTROL_VIDEO commands and answer with :meth:`send_frame`, one
+    DATA_TRANSMISSION_HANDSHAKE and N ENCAPSULATED_DATA packets
+    (``runtime/mavlink_video.cpp``)."""
+
+    _destroy = "mav_video_server_destroy"
+
+    def __init__(self, conn: MavConnection):
+        self._lib, self._conn = conn._lib, conn  # the C object uses the connection: keep it alive
+        self._ptr = self._lib.mav_video_server_create(conn._ptr)
+        if not self._ptr:
+            raise OSError("mav_video_server_create failed (subscriber slots?)")
+
+    def has_request(self):
+        """The pending request as (camera_id, every_n_sec, save_locally),
+        or None; a request is consumed when it is read."""
+        cam, interval, save = ctypes.c_int(), ctypes.c_float(), ctypes.c_int()
+        if not self._lib.mav_video_server_has_request(self._ptr, ctypes.byref(cam), ctypes.byref(interval),
+                                                      ctypes.byref(save)):
+            return None
+        return int(cam.value), float(interval.value), bool(save.value)
+
+    def send_frame(self, data: bytes, width: int, height: int, image_type: int = 0, quality: int = 90) -> int:
+        """Stream one frame; returns the number of MAVLink packets sent."""
+        n = self._lib.mav_video_server_send_frame(self._ptr, data, len(data), width, height, image_type, quality)
+        if n < 0:
+            raise OSError("mav_video_server_send_frame failed")
+        return int(n)
+
+
+class MavVideoClient(_Handle):
+    """The ground station's video receiver (the reference's
+    MavLinkVideoClient): ask with :meth:`request_video`, poll
+    :meth:`read_next_frame` for the newest complete image (handed out
+    once)."""
+
+    _CAP = 16 * 1024 * 1024
+    _destroy = "mav_video_client_destroy"
+
+    def __init__(self, conn: MavConnection):
+        self._lib, self._conn = conn._lib, conn  # the C object uses the connection: keep it alive
+        self._ptr = self._lib.mav_video_client_create(conn._ptr)
+        if not self._ptr:
+            raise OSError("mav_video_client_create failed (subscriber slots?)")
+        self._buf = ctypes.create_string_buffer(self._CAP)
+
+    def request_video(self, camera_id: int, every_n_sec: float, save_locally: bool = False,
+                      target_system: int = 1, target_component: int = 1):
+        rc = self._lib.mav_video_client_request(self._ptr, camera_id, every_n_sec, int(save_locally), target_system,
+                                                target_component)
+        if rc != 0:
+            raise OSError("mav_video_client_request failed")
+
+    def _read(self, buf, cap: int):
+        w, h, t, q, prog = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_float()
+        n = self._lib.mav_video_client_read_frame(self._ptr, buf, cap, ctypes.byref(w), ctypes.byref(h),
+                                                  ctypes.byref(t), ctypes.byref(q), ctypes.byref(prog))
+        return n, (int(w.value), int(h.value), int(t.value), int(q.value), float(prog.value))
+
+    def read_next_frame(self):
+        """The newest complete :class:`VideoFrame`, or None if nothing new."""
+        n, meta = self._read(self._buf, self._CAP)
+        if n < 0:
+            raise OSError("frame larger than the client's buffer")
+        return VideoFrame(self._buf.raw[:n], *meta) if n > 0 else None
+
+    def progress(self) -> float:
+        """The assembled fraction (0..1) of the frame in flight."""
+        return self._read(None, 0)[1][-1]
+
+
+class AdHocConnection(_Handle):
+    """A raw-datagram UDP link to a peer that speaks no MAVLink (the
+    reference's AdHocConnection): :meth:`local` binds a port and latches
+    the first sender as its reply address; :meth:`remote` targets a known
+    address from an ephemeral port.  Messages are raw bytes, no framing or
+    CRC (``runtime/adhoc.cpp``)."""
+
+    _CAP = 65536
+    _destroy = "adhoc_destroy"
+
+    def __init__(self, ptr, lib):
+        self._ptr = ptr
+        self._lib = lib
+        self._buf = ctypes.create_string_buffer(self._CAP)
+
+    @classmethod
+    def local(cls, local_port: int) -> "AdHocConnection":
+        lib = load()
+        ptr = lib.adhoc_create_local(local_port)
+        if not ptr:
+            raise OSError(f"adhoc_create_local failed (port {local_port})")
+        return cls(ptr, lib)
+
+    @classmethod
+    def remote(cls, host: str, port: int) -> "AdHocConnection":
+        lib = load()
+        ptr = lib.adhoc_create_remote(host.encode(), port)
+        if not ptr:
+            raise OSError(f"adhoc_create_remote failed ({host}:{port})")
+        return cls(ptr, lib)
+
+    def send(self, data: bytes) -> int:
+        """Bytes sent; raises while no remote is known (a local link before
+        its first datagram)."""
+        n = self._lib.adhoc_send(self._ptr, data, len(data))
+        if n < 0:
+            raise OSError("adhoc_send: no remote latched yet")
+        return int(n)
+
+    def recv(self, timeout_s: float = 1.0):
+        """The oldest queued datagram as bytes, or None on timeout."""
+        n = self._lib.adhoc_recv(self._ptr, self._buf, self._CAP, timeout_s)
+        return self._buf.raw[:n] if n > 0 else None
+
+    @property
+    def received(self) -> int:
+        return int(self._lib.adhoc_received(self._ptr))

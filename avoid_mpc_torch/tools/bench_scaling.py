@@ -36,7 +36,9 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))  # the package's parent
-MIN_STEPS = 20  # timed steps per size on the card
+TIMED_STEPS = 20  # timed steps per size: the default, and the least the card takes
+B_PER_DEVICE = 4096  # scenarios per rank (a GPU each)
+N_POINTS = 1024  # cloud points per scenario
 
 
 def run_rank(args) -> dict | None:
@@ -95,7 +97,7 @@ def run_rank(args) -> dict | None:
             "converged_frac": float(conv)}
 
 
-def run_size(n: int, args, timeout: float) -> dict:
+def run_one(n: int, args, timeout: float) -> dict:
     """n ranks of this tool, each a process, over a fresh file:// rendezvous;
     rank 0's JSON line."""
     env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
@@ -124,13 +126,13 @@ def sweep(args, timeout: float = 900.0) -> dict:
     from avoid_mpc_torch.device import resolve_device
 
     dev = resolve_device(args.device)
-    if dev.type == "cuda" and args.steps < MIN_STEPS:
-        raise ValueError(f"--steps {args.steps}: the median takes at least {MIN_STEPS} steps on the card")
+    if dev.type == "cuda" and args.steps < TIMED_STEPS:
+        raise ValueError(f"--steps {args.steps}: the median takes at least {TIMED_STEPS} steps on the card")
     if args.sizes:
         sizes = [int(s) for s in args.sizes.split(",")]
     else:
         sizes = [1 << i for i in range(torch.cuda.device_count().bit_length())]
-    curve = {str(n): run_size(n, args, timeout) for n in sizes}
+    curve = {str(n): run_one(n, args, timeout) for n in sizes}
     t1 = curve["1"]["p50_ms"] if "1" in curve else None
     for res in curve.values():
         res["eff_n"] = t1 / res["p50_ms"] if t1 is not None else None
@@ -147,9 +149,9 @@ def sweep(args, timeout: float = 900.0) -> dict:
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sizes", default=None, help="comma-separated rank counts (default 1, 2, 4, ... GPUs)")
-    ap.add_argument("--batch-per-rank", type=int, default=4096)
-    ap.add_argument("--points", type=int, default=1024)
-    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch-per-rank", type=int, default=B_PER_DEVICE)
+    ap.add_argument("--points", type=int, default=N_POINTS)
+    ap.add_argument("--steps", type=int, default=TIMED_STEPS)
     ap.add_argument("--iters", type=int, default=10, help="SQP iterations")
     ap.add_argument("--device", default="cuda")
     # one rank of one size (what the sweep runs)

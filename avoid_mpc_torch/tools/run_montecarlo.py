@@ -111,6 +111,9 @@ def run_chunk(camp: Campaign, ws, decay, n_ticks: int, mark=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    from avoid_mpc_torch.utils.compile_cache import enable_persistent_cache
+
+    enable_persistent_cache()
     import torch
 
     from avoid_mpc_torch.sim.world import WorldDiag

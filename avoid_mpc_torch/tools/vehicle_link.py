@@ -62,16 +62,53 @@ DT = 0.02  # 50 Hz, the reference's control tick
 WAIT_S = 5.0
 
 
-def free_ports(n: int) -> list[int]:
-    """n distinct free local ports (bound and released)."""
-    socks = [socket.socket() for _ in range(n)]
+PORT_SPAN = 16384  # ports below the ephemeral range that free_ports draws from
+PORT_TRIES = 256
+
+
+def ephemeral_range() -> tuple[int, int]:
+    """The kernel's ephemeral port range (where a socket bound to port 0
+    lands); 32768-60999 where it cannot be read."""
     try:
-        for s in socks:
-            s.bind(("127.0.0.1", 0))
-        return [s.getsockname()[1] for s in socks]
+        lo, hi = (int(v) for v in Path("/proc/sys/net/ipv4/ip_local_port_range").read_text().split())
+        return lo, hi
+    except (OSError, ValueError):
+        return 32768, 60999
+
+
+def free_ports(n: int) -> list[int]:
+    """n distinct local ports that are free for UDP and for TCP, drawn at
+    random from the PORT_SPAN ports below the ephemeral range and
+    bind-tested on loopback.  Outside that range, no other test's "bind port
+    0" probe (which draws from the ephemeral range) can be handed a port
+    that a link opened here holds."""
+    import random
+
+    hi = ephemeral_range()[0]
+    lo = max(1024, hi - PORT_SPAN)
+    rng = random.Random()
+    held, ports = [], []
+    try:
+        for _ in range(PORT_TRIES):
+            if len(ports) == n:
+                break
+            port = rng.randrange(lo, hi)
+            if port in ports:
+                continue
+            pair = [socket.socket(socket.AF_INET, kind) for kind in (socket.SOCK_DGRAM, socket.SOCK_STREAM)]
+            held += pair
+            try:
+                for s in pair:
+                    s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            ports.append(port)
     finally:
-        for s in socks:
+        for s in held:
             s.close()
+    if len(ports) < n:
+        raise OSError(f"free_ports: found {len(ports)} of {n} free ports in {lo}-{hi - 1}")
+    return ports
 
 
 def wait_for(pred, timeout: float = WAIT_S) -> bool:

@@ -32,8 +32,11 @@ def pick(index: torch.Tensor, options: list):
 
 
 def named_leaves(tree, prefix: str = "") -> list[tuple[str, object]]:
-    """(dotted path, leaf) of every leaf, fields in order."""
-    if isinstance(tree, tuple):
+    """(dotted path, leaf) of every leaf of nested NamedTuples, tuples,
+    lists and dicts, fields (and keys) in order."""
+    if isinstance(tree, dict):
+        return [pair for k, v in tree.items() for pair in named_leaves(v, f"{prefix}{k}.")]
+    if isinstance(tree, (tuple, list)):
         names = getattr(tree, "_fields", None) or [str(i) for i in range(len(tree))]
         return [pair for n, v in zip(names, tree) for pair in named_leaves(v, f"{prefix}{n}.")]
     return [(prefix[:-1], tree)]

@@ -131,7 +131,27 @@ ticks, once with the fused solve and once with the per-phase solve
     rangefinder against the CPU in float64; (e) the drag solve (flagship
     problem, B=256) on the plain path: no kernel launch, controls within
     1e-3 of the CPU float64 solve where both converged, and its time;
-19. a ``kernels`` JSON line; the last line is the device JSON.
+19. the measurement tools, each through its ``main`` at full width, with
+    each component's kernel launches: (a) ``tools/profile_solver`` at
+    B=4096 (solve_iters1 / 10, assoc_knn, linearize / backward / forward
+    x10: 1 k-NN + 1 SQP, 1 k-NN, none, 10 sweeps, 10 line searches), its
+    10-iteration step's first controls equal to phase 5's fused step on
+    the same inputs bit for bit, and the per-iteration slope against the
+    SQP kernel's; (b) ``tools/bench_matrix``: the five configs (5 timed
+    steps each, the replay cut to 120 ticks) with p50 / p99, busy time and
+    launches per step, and the scaling curve over 1 / 2 / 4 / 8 slots of
+    the card; (c) ``tools/attribute_tick`` at 640x480 with 100 keyframes
+    and the ``forest_10k`` legs (ingest 2 + engine 9 k-NN: phase 12's 11,
+    and 3 SQP); (d) ``tools/bench_single_robot`` and
+    ``tools/probe_single_robot`` (11 k-NN and 3 SQP a tick); (e)
+    ``tools/ablate_barrier`` at its defaults (B=16, 24 trees) for
+    ``baseline`` and ``margin006``, 150 ticks each (8 k-NN and 3 SQP a
+    tick): collisions, minimum clearance, progress; (f) an FTP put / get
+    of 1 MB over UDP loopback (bytes and crc32 equal), a 640x480 depth
+    frame through the video stream (bytes equal), an ad-hoc exchange, and
+    phase 11's ``EngineState`` through ``save_checkpoint`` /
+    ``load_checkpoint`` (bit-equal, on the card);
+20. a ``kernels`` JSON line; the last line is the device JSON.
 
 Kernel times (phases 5, 9, 10 and the kernels line) are the kernel's own
 device time from ``torch.profiler``'s kernel records; CUDA events around
@@ -146,6 +166,7 @@ checkout, it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -528,13 +549,9 @@ STAGES = ("render", "depth", "map", "engine", "control + plant")  # sim/world.wo
 
 
 def launch_counts() -> dict:
-    from avoid_mpc_torch.ops.knn_cuda import knn_topk
-    from avoid_mpc_torch.solver.backward_cuda import riccati_backward
-    from avoid_mpc_torch.solver.forward_cuda import line_search
-    from avoid_mpc_torch.solver.sqp_cuda import sqp_solve
+    from avoid_mpc_torch.utils.profiling import kernel_launches
 
-    return {"knn_topk": knn_topk.launches, "sqp_solve": sqp_solve.launches,
-            "riccati_backward": riccati_backward.launches, "line_search": line_search.launches}
+    return kernel_launches()
 
 
 def zero_launch_counts() -> None:
@@ -1733,6 +1750,253 @@ def drag_solve(dev) -> dict:
     return launches
 
 
+# Phase 19: the measurement tools, and the host / storage tail, each through its entry point.
+TOOL_LAUNCHES = {  # kernel launches of one call (profile_solver) or one iteration / step / tick
+    "profile_solver": {"solve_iters1": {"knn_topk": 1, "sqp_solve": 1},
+                       "solve_iters10": {"knn_topk": 1, "sqp_solve": 1}, "assoc_knn": {"knn_topk": 1}, "linearize_x10": {}, "backward_x10": {"riccati_backward": 10},
+                       "forward_x10": {"line_search": 10}},
+    "bench_matrix": {"obstacle_free": {"knn_topk": 1, "sqp_solve": 1}, "single_1k": {"knn_topk": 1, "sqp_solve": 1},
+                     "forest_10k": {"knn_topk": 6, "sqp_solve": 3}, "montecarlo_4096": {"knn_topk": 1, "sqp_solve": 1},
+                     "replay_12ms": {"knn_topk": 11, "sqp_solve": 3}},  # replay: per tick, the single robot's
+    # attribute_tick: ingest is the map's prune + dedupe, engine the culled tick's 3 x (edge + candidates +
+    # rescue): together phase 12's 11 k-NN and 3 SQP a tick
+    "attribute_tick": {"render": {}, "ingest": {"knn_topk": 2}, "assoc_brute": {"knn_topk": 1},
+                       "assoc_culled": {"knn_topk": 2}, "guard": {"knn_topk": 1}, "solve": {"sqp_solve": 1},
+                       "engine": {"knn_topk": 9, "sqp_solve": 3}, "ctrl_plant": {},
+                       "forest_assoc_brute_b1024": {"knn_topk": 1}, "forest_assoc_culled_b1024": {"knn_topk": 1},
+                       "forest_guard_b1024": {"knn_topk": 1}, "forest_solve_b1024": {"sqp_solve": 1},
+                       "forest_engine_b1024": {"knn_topk": 6, "sqp_solve": 3}},
+    "single robot tick": {"knn_topk": 11, "sqp_solve": 3},
+    "ablation tick": {"knn_topk": 8, "sqp_solve": 3},  # B=16 brute force: 3 x (edge + association) + prune + dedupe
+}
+ABLATE_CONFIGS, ABLATE_TICKS, ABLATE_CHUNK = ("baseline", "margin006"), 150, 50
+ATTR_CHAIN, ATTR_REPS = 4, 3
+MATRIX_STEPS, MATRIX_REPLAY_TICKS = 5, 120
+
+
+def tools_phase(dev, flagship, forest_state) -> dict:
+    """Phase 19: the measurement tools at full width, each through its
+    ``main``, with their launch counts: (a) ``profile_solver`` at B=4096
+    (its 10-iteration step's controls equal phase 5's fused step on the
+    same inputs, bit for bit); (b) ``bench_matrix``'s five configs and its
+    scaling curve; (c) ``attribute_tick``; (d) ``bench_single_robot`` and
+    ``probe_single_robot``; (e) ``ablate_barrier``; (f) FTP, video,
+    ad-hoc and a checkpoint of phase 11's state."""
+    import torch
+
+    from avoid_mpc_torch import step
+    from avoid_mpc_torch.runtime import native
+    from avoid_mpc_torch.tools import (ablate_barrier, attribute_tick, bench_matrix, bench_single_robot,
+                                       probe_single_robot, profile_solver)
+
+    out_dir = native.BUILD_DIR.parent / "tools"
+    res = {}
+
+    # 19a profile_solver
+    x0, ref, target, pts, mask, us0, sp, hp = flagship
+    u0_fused = step.solve_step(x0, ref, target, pts, mask, us0, sp, hp)[0][:, 0]
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    prof = profile_solver.main(["--device", "cuda", "--batch", str(B), "--points", str(N_PTS)])
+    launches = launch_counts()
+    recs = prof["records"]
+    check(all(launches[k] > 0 for k in launches), f"19a profile_solver left a kernel unlaunched: {launches}")
+    for name, want in TOOL_LAUNCHES["profile_solver"].items():
+        check(recs[name]["launches"] == want, f"19a {name} launches {recs[name]['launches']} != {want}")
+    same = torch.equal(prof["us_iters10"][:, 0], u0_fused)
+    check(same, "19a solve_iters10's u0 differs from phase 5's fused step on the same inputs")
+    slope = prof["per_iteration_ms"]
+    sqp10 = recs["solve_iters10"]["kernel_ms"].get("sqp_solve", float("nan"))
+    sqp1 = recs["solve_iters1"]["kernel_ms"].get("sqp_solve", float("nan"))
+    print(f"phase 19a profile_solver (B={B}) in {time.perf_counter() - t0:.1f} s: " + "; ".join(
+        f"{n} p50 {r['p50_ms']:.4f} ms, busy {r['device_ms']:.4f} ms, kernels {r['kernel_ms']}, launches "
+        f"{r['launches']}" for n, r in recs.items()) + f"; per-iteration slope (t10 - t1) / 9 = {slope:.4f} ms against the SQP kernel's "
+        f"(k10 - k1) / 9 = {(sqp10 - sqp1) / 9:.4f} ms; u0 of solve_iters10 equal to phase 5's fused step: {same}; "
+        f"launches {launches}", flush=True)
+    res["profile_solver"] = {"records": recs, "slope_ms": slope, "sqp_slope_ms": (sqp10 - sqp1) / 9}
+
+    # 19b bench_matrix
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    mat = bench_matrix.main(["--device", "cuda", "--steps", str(MATRIX_STEPS), "--replay-ticks",
+                             str(MATRIX_REPLAY_TICKS), "--out", str(out_dir)])["results"]
+    launches = launch_counts()
+    check(launches["knn_topk"] > 0 and launches["sqp_solve"] > 0, f"19b bench_matrix launches {launches}")
+    for name, want in TOOL_LAUNCHES["bench_matrix"].items():
+        got = mat[name].get("launches_per_step", mat[name].get("launches_per_tick"))
+        check(got == want, f"19b {name} launches {got} != {want}")
+    for n, r in mat["scaling"]["slots"].items():
+        check(r["launches_per_step"] == {"sqp_solve": int(n)},
+              f"19b scaling {n} slots launches {r['launches_per_step']}")
+    check(mat["replay_12ms"]["replay_cmd_max_abs_err"] <= 1e-3,
+          f"19b replay commands differ from the recorded flight by {mat['replay_12ms']['replay_cmd_max_abs_err']}")
+    fin = all(math.isfinite(mat[n]["mean_cost"]) for n in ("obstacle_free", "single_1k", "montecarlo_4096"))
+    check(fin, "19b a solver config's mean cost is not finite")
+    print(f"phase 19b bench_matrix ({MATRIX_STEPS} timed steps each, replay of {MATRIX_REPLAY_TICKS} ticks) in "
+          f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
+              f"{n} p50 {mat[n]['p50_ms']:.4f} ms p99 {mat[n]['p99_ms']:.4f} ms busy {mat[n]['device_busy_ms']:.4f} ms "
+              f"launches {mat[n]['launches_per_step']}" for n in ("obstacle_free", "single_1k", "forest_10k",
+                                                                  "montecarlo_4096")) +
+          f"; replay_12ms p50 {mat['replay_12ms']['p50_ms_per_tick']:.4f} ms a tick, busy "
+          f"{mat['replay_12ms']['device_busy_ms_per_tick']:.4f}, launches {mat['replay_12ms']['launches_per_tick']}, "
+          f"peak {mat['replay_12ms']['peak_speed_mps']} m/s, max |du| vs the log "
+          f"{mat['replay_12ms']['replay_cmd_max_abs_err']:.3e}; scaling (slots of one card, a stand-in for a "
+          f"multi-GPU mesh): " + ", ".join(f"{n} slots p50 {r['p50_ms']:.4f} ms efficiency {r['efficiency']}"
+                                           for n, r in mat["scaling"]["slots"].items()), flush=True)
+    res["bench_matrix"] = mat
+
+    # 19c attribute_tick
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    att = attribute_tick.main(["--device", "cuda", "--chain", str(ATTR_CHAIN), "--reps", str(ATTR_REPS), "--out",
+                               str(out_dir)])
+    launches = launch_counts()
+    comps = att["components"]
+    check(launches["knn_topk"] > 0 and launches["sqp_solve"] > 0, f"19c attribute_tick launches {launches}")
+    for name, want in TOOL_LAUNCHES["attribute_tick"].items():
+        check(comps[name]["launches_per_iter"] == want,
+              f"19c {name} launches per iteration {comps[name]['launches_per_iter']} != {want}")
+    print(f"phase 19c attribute_tick (chain {ATTR_CHAIN}, {ATTR_REPS} reps) in {time.perf_counter() - t0:.1f} s: " +
+          "; ".join(f"{n} {r['per_iter_ms']:.4f} ms (busy {r['device_ms_per_iter']:.4f})" for n, r in comps.items()) +
+          f"; single-robot sum render + ingest + engine + ctrl_plant {att['single_robot_component_sum_ms']:.3f} ms",
+          flush=True)
+    res["attribute_tick"] = att
+
+    # 19d bench_single_robot, probe_single_robot
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    bsr = bench_single_robot.main(["--device", "cuda", "--reps", "3"])
+    psr = probe_single_robot.main(["--device", "cuda", "--reps", "3"])
+    launches = launch_counts()
+    want = TOOL_LAUNCHES["single robot tick"]
+    check(launches["knn_topk"] > 0 and launches["sqp_solve"] > 0, f"19d launches {launches}")
+    for k, c in bsr["chunks"].items():
+        check(c["launches_per_tick"] == want, f"19d bench_single_robot chunk {k} launches {c['launches_per_tick']}")
+    check(psr["launches_per_tick"] == want, f"19d probe_single_robot launches {psr['launches_per_tick']}")
+    check(psr["mission"] == 3, f"19d probe_single_robot not in TASK after its warm-up: mission {psr['mission']}")
+    print(f"phase 19d in {time.perf_counter() - t0:.1f} s: bench_single_robot " + ", ".join(
+        f"K={k} {c['per_tick_ms']:.3f} ms a tick (busy {c['device_busy_ms_per_tick']:.3f})" for k, c in
+        bsr["chunks"].items()) + f", meets 33 ms {bsr['meets_30hz']}; probe_single_robot chained "
+        f"{psr['chained_per_tick_ms']:.3f} ms, single {psr['single_dispatch_ms']:.3f} ms, busy "
+        f"{psr['device_busy_ms_per_tick']:.3f} ms a tick (meets 33.3 ms: device {psr['meets_30hz_device']}, chained "
+        f"{psr['meets_30hz_chained']}), decay {psr['decay_final_ms']} ms, mission {psr['mission']}", flush=True)
+    res["single_robot"] = {"bench": bsr, "probe": psr}
+
+    # 19e ablate_barrier
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    abl = ablate_barrier.main(["--device", "cuda", "--configs", ",".join(ABLATE_CONFIGS), "--ticks",
+                               str(ABLATE_TICKS), "--chunk", str(ABLATE_CHUNK), "--out", str(out_dir)])
+    launches = launch_counts()
+    ticks = len(ABLATE_CONFIGS) * ABLATE_TICKS
+    want = {"riccati_backward": 0, "line_search": 0,
+            **{k: v * ticks for k, v in TOOL_LAUNCHES["ablation tick"].items()}}
+    check(launches == want, f"19e ablate_barrier launches {launches} != {want}")
+    for name, r in abl["results"].items():
+        check(math.isfinite(r["min_clearance"]) and math.isfinite(r["final_x_mean"]), f"19e {name} not finite")
+    print(f"phase 19e ablate_barrier (B={abl['protocol']['batch']}, {abl['protocol']['trees']} trees, "
+          f"{ABLATE_TICKS} ticks a config) in {time.perf_counter() - t0:.1f} s: " + "; ".join(
+              f"{n}: collisions {r['collisions']}, min clearance {r['min_clearance']} m, final x mean "
+              f"{r['final_x_mean']} min {r['final_x_min']} m, {r['wall_s']} s" for n, r in abl["results"].items()) +
+          f"; launches {launches}", flush=True)
+    res["ablate_barrier"] = abl["results"]
+
+    host_storage(dev, out_dir, forest_state)
+    return res
+
+
+def host_storage(dev, out_dir, forest_state) -> None:
+    """Phase 19f: an FTP put / get of 1 MB over UDP loopback (bytes and
+    crc32 equal), a 640x480 depth frame through the video stream (bytes
+    equal), an ad-hoc exchange, and a checkpoint of phase 11's
+    ``forest_10k`` engine state restored bit-equal on the card."""
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from avoid_mpc_torch.config import PerceptionConfig
+    from avoid_mpc_torch.runtime import native
+    from avoid_mpc_torch.sim.scenarios import ScenarioConfig, random_forest
+    from avoid_mpc_torch.sim.sensors import render_depth
+    from avoid_mpc_torch.tools import vehicle_link as vl
+    from avoid_mpc_torch.utils.recorder import load_checkpoint, save_checkpoint
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    root = out_dir / "ftp_root"
+    root.mkdir(exist_ok=True)
+    blob = np.random.default_rng(0).integers(0, 256, 1 << 20, dtype=np.uint8).tobytes()
+    (out_dir / "ftp_src.bin").write_bytes(blob)
+    gcs, veh = vl.connection_pair()
+    srv, cli = native.MavFtpServer(veh, str(root)), native.MavFtpClient(gcs)
+    try:
+        t0 = time.perf_counter()
+        put = cli.put(str(out_dir / "ftp_src.bin"), "flight.bin", timeout_s=60.0)
+        put_s = time.perf_counter() - t0
+        crc = cli.crc32("flight.bin")
+        t0 = time.perf_counter()
+        got = cli.get("flight.bin", str(out_dir / "ftp_dst.bin"), timeout_s=60.0)
+        get_s = time.perf_counter() - t0
+        listed = ("F", "flight.bin", len(blob)) in cli.list("/")
+        ops = srv.ops_served()
+    finally:
+        cli.close(), srv.close(), gcs.close(), veh.close()
+    ftp_ok = (put == got == len(blob) and crc == zlib.crc32(blob) and (out_dir / "ftp_dst.bin").read_bytes() == blob
+              and (root / "flight.bin").read_bytes() == blob and listed)
+    check(ftp_ok, f"19f FTP round trip: put {put}, get {got}, crc32 {crc:#x} vs {zlib.crc32(blob):#x}, listed {listed}")
+    print(f"phase 19f FTP over UDP loopback: put {put} B in {put_s:.3f} s, get {got} B in {get_s:.3f} s, {ops} "
+          f"requests served, crc32 {crc:#010x} equal {crc == zlib.crc32(blob)}, bytes equal {ftp_ok}", flush=True)
+
+    pc = PerceptionConfig()
+    field = random_forest(torch.Generator(device=dev).manual_seed(7), ScenarioConfig(n_cylinders=24), 1)
+    pose = torch.eye(4, device=dev)[None].clone()
+    pose[0, 2, 3] = 1.5
+    depth = render_depth(pose, field, pc, pc.height, pc.width)[0]
+    mm = (depth.clamp(0.0, 65.535) * 1000.0).round().to(torch.int32).cpu().numpy().astype(np.uint16)
+    frame = zlib.compress(mm.tobytes(), 6)  # the frame as the stream carries it: 16-bit millimetres, deflated
+    gcs, veh = vl.connection_pair()
+    vs, vc = native.MavVideoServer(veh), native.MavVideoClient(gcs)
+    try:
+        vc.request_video(camera_id=0, every_n_sec=0.1)
+        req = vl.wait_for(lambda: vs.has_request() is not None)
+        recv, sends, packets = [], 0, 0
+        while not recv and sends < 3:  # a frame that lost a datagram is replaced by the stream's next one
+            packets = vs.send_frame(frame, pc.width, pc.height, image_type=0, quality=100)
+            sends += 1
+            vl.wait_for(lambda: (f := vc.read_next_frame()) is not None and (recv.append(f) or True), 2.0)
+    finally:
+        vc.close(), vs.close(), gcs.close(), veh.close()
+    v_ok = bool(recv) and recv[0].data == frame and (recv[0].width, recv[0].height) == (pc.width, pc.height)
+    v_ok = v_ok and np.array_equal(np.frombuffer(zlib.decompress(recv[0].data), np.uint16).reshape(mm.shape), mm)
+    check(req and v_ok, f"19f video round trip: request seen {req}, frame received {bool(recv)}, equal {v_ok}")
+    print(f"phase 19f video: a {pc.width}x{pc.height} depth frame (uint16 mm, deflated to {len(frame)} B, {packets} "
+          f"packets) in {sends} send(s): request seen {req}, bytes equal {v_ok}", flush=True)
+
+    (port,) = vl.free_ports(1)
+    listener, caller = native.AdHocConnection.local(port), native.AdHocConnection.remote("127.0.0.1", port)
+    try:
+        caller.send(b"avoid-mpc ad-hoc hello")
+        hello = listener.recv(timeout_s=5.0)
+        listener.send(b"ad-hoc reply")
+        reply = caller.recv(timeout_s=5.0)
+    finally:
+        caller.close(), listener.close()
+    check(hello == b"avoid-mpc ad-hoc hello" and reply == b"ad-hoc reply", f"19f ad-hoc: {hello!r} / {reply!r}")
+    print(f"phase 19f ad-hoc: datagram {hello!r} latched the caller, reply {reply!r}", flush=True)
+
+    path = out_dir / "forest_state.ckpt"
+    t0 = time.perf_counter()
+    save_checkpoint(str(path), forest_state)
+    back = load_checkpoint(str(path), forest_state)
+    ck_s = time.perf_counter() - t0
+    same = all(a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(forest_state, back))
+    check(same, "19f checkpoint of the forest_10k EngineState did not restore bit-equal on the card")
+    shapes = ", ".join(f"{n} {tuple(t.shape)}" for n, t in zip(forest_state._fields, forest_state))
+    print(f"phase 19f checkpoint: phase 11's forest_10k EngineState ({shapes}) saved and restored in {ck_s:.3f} s "
+          f"({path.stat().st_size} B), bit-equal on {back.ref_path.device}: {same}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2158,7 +2422,10 @@ def main() -> int:
     sensors_gate(dev)
     drag = drag_solve(dev)
 
-    # ---- 19. kernels ----
+    # ---- 19. the measurement tools, host and storage ----
+    tools_phase(dev, (x0, ref, target, pts, mask, us0, sp, hp), forest["tick"][0])
+
+    # ---- 20. kernels ----
     kernels = [
         {"name": "knn_topk", "route": "cuda", "source": "avoid_mpc_torch/csrc/knn.cu",
          "replaces": "avoid_mpc_tpu/ops/pallas_knn.py:113", "launches": launches["knn_topk"],

@@ -245,3 +245,27 @@ def test_boundary_scan_covers_the_vehicle_link_slice():
     r = subprocess.run([sys.executable, "-S", "-c", f"import sys; sys.path[:0] = {sys.path!r}\n" + code],
                        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_boundary_scan_covers_the_tail():
+    """The tail's modules are scanned and imported too; importing every
+    module of the package loads no matplotlib (``utils/viz`` imports it at
+    its first plot: the card's machine has none) and builds nothing."""
+    scanned = {str(p.relative_to(PACKAGE)) for p in PACKAGE.rglob("*.py")}
+    for mod in ("utils/compile_cache.py", "utils/viz.py", "utils/recorder.py", "tools/gen_mavlink_table.py",
+                "tools/profile_solver.py", "tools/bench_matrix.py", "tools/attribute_tick.py",
+                "tools/bench_single_robot.py", "tools/probe_single_robot.py", "tools/ablate_barrier.py"):
+        assert mod in scanned, mod
+    code = (
+        "import sys, importlib, pkgutil, avoid_mpc_torch\n"
+        "for m in pkgutil.walk_packages(avoid_mpc_torch.__path__, 'avoid_mpc_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import avoid_mpc_torch.runtime.native as n, avoid_mpc_torch.cuda_build as c\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('matplotlib', 'jax', 'avoid_mpc_tpu'))\n"
+        "assert not bad, bad\n"
+        "assert n._lib is None and not c._loaded\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    r = subprocess.run([sys.executable, "-S", "-c", f"import sys; sys.path[:0] = {sys.path!r}\n" + code],
+                       cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
