@@ -17,7 +17,13 @@ CUDA tensor takes the kernel.
 The package imports ``torch`` and never ``jax`` or ``avoid_mpc_tpu``.
 """
 
-from avoid_mpc_torch.config import MPCConfig, MPCWeights  # noqa: F401
+from avoid_mpc_torch.config import (  # noqa: F401
+    MPCConfig,
+    MPCWeights,
+    PerceptionConfig,
+    TaskConfig,
+    load_config,
+)
 from avoid_mpc_torch.device import resolve_device  # noqa: F401
 
 __version__ = "0.1.0"

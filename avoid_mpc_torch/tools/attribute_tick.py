@@ -43,7 +43,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import statistics
 
 SINGLE = ("render", "ingest", "assoc_brute", "assoc_culled", "guard", "solve", "engine", "ctrl_plant")
 FOREST = ("forest_assoc_brute_b1024", "forest_assoc_culled_b1024", "forest_guard_b1024", "forest_solve_b1024",
@@ -56,7 +55,7 @@ def time_chained(name: str, body, carry0, chain: int, reps: int, dev) -> dict:
     """``body(carry, i) -> carry`` chained ``chain`` times per call from
     ``carry0``; one untimed call, then ``reps`` timed: the per-iteration
     median, the device time and the launches per iteration."""
-    from avoid_mpc_torch.utils.profiling import device_time, launches_of, per_call_ms, timed
+    from avoid_mpc_torch.utils.profiling import chain_stats
 
     def call():
         carry = carry0
@@ -64,12 +63,10 @@ def time_chained(name: str, body, carry0, chain: int, reps: int, dev) -> dict:
             carry = body(carry, i)
         return carry
 
-    (_, launches), compile_s = timed(launches_of, call)
-    per_iter = statistics.median(per_call_ms(call, reps, dev)) / chain
-    dt = device_time(call, reps=1, device=dev)
-    rec = {"component": name, "per_iter_ms": round(per_iter, 4), "compile_s": round(compile_s, 1),
-           "device_ms_per_iter": None if dt is None else round(dt["busy_ms"] / chain, 4),
-           "launches_per_iter": {k: v / chain for k, v in launches.items() if v}}
+    st = chain_stats(call, chain, reps, dev)
+    rec = {"component": name, "per_iter_ms": round(st["p50_ms"], 4), "compile_s": round(st["compile_s"], 1),
+           "device_ms_per_iter": None if st["device_ms"] is None else round(st["device_ms"], 4),
+           "launches_per_iter": st["launches"]}
     print(json.dumps(rec), flush=True)
     return rec
 

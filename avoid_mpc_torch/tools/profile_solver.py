@@ -9,7 +9,9 @@ inputs from a generator seeded 0 on the device).  Components:
 
   solve_iters1 / solve_iters10   the whole step at 1 / 10 SQP iterations (the
                                  fused kernel); (t10 - t1) / 9 is the cost
-                                 of one iteration
+                                 of one iteration: ``per_iteration_ms`` from
+                                 the host-clock p50s, ``per_iteration_device_ms``
+                                 from the busy times
   assoc_knn                      the 3-NN association alone (the k-NN kernel)
   linearize_x10                  10 torch linearizations of the cost
   backward_x10                   10 Riccati sweeps (the sweep kernel)
@@ -21,7 +23,9 @@ one JSON line with the JAX keys (``name``, ``p50_ms``: the median of
 ``--reps`` back-to-back calls timed by CUDA events, ``compile_s``: the
 first call's wall time, which builds the kernels at first use) and the
 port's own: ``device_ms`` (the card's busy time per call, ``torch.profiler``),
-``kernel_ms`` (each hand-written kernel's device time per call) and
+``kernel_ms`` (each hand-written kernel's device time per call),
+``kernel_records`` / ``profile_complete`` (the profiler's records of each
+kernel in its session, and whether they matched the launches) and
 ``launches`` (kernel launches in one call).  A last line carries the card
 and the batch.  On the card every component runs its kernel; a kernel that
 fails to build or launch raises.  ``--device cpu`` runs the plain twins
@@ -35,9 +39,10 @@ import json
 import statistics
 
 N_HORIZON = 20
+BATCH, N_POINTS = 4096, 1024  # the flagship's scenarios and cloud points per scenario
 
 
-def build(dev, batch: int, n_pts: int):
+def build(dev, batch: int = BATCH, n_pts: int = N_POINTS):
     """The flagship inputs (seed 0 on ``dev``) and parameters: x0, ref,
     target, pts, mask, the hover warm start, SolverParams, SolverHyper."""
     import torch
@@ -62,12 +67,14 @@ def measure(name: str, fn, reps: int, dev) -> tuple[dict, object]:
     rec = {"name": name, "p50_ms": round(p50, 4), "compile_s": round(compile_s, 1),
            "device_ms": None if dt is None else round(dt["busy_ms"], 4),
            "kernel_ms": None if dt is None else {k: round(v, 4) for k, v in dt["kernels"].items() if v},
+           "kernel_records": None if dt is None else {k: v for k, v in dt["counts"].items() if dt["want"][k]},
+           "profile_complete": None if dt is None else dt["complete"],
            "launches": {k: v for k, v in launches.items() if v}}
     print(json.dumps(rec), flush=True)
     return rec, out
 
 
-def run(dev, batch: int = 4096, n_pts: int = 1024, reps: int = 5) -> dict:
+def run(dev, batch: int = BATCH, n_pts: int = N_POINTS, reps: int = 5) -> dict:
     """Every component at ``batch``; returns {"records": {name: record},
     "us_iters10": the solve_iters10 step's controls}."""
     import torch
@@ -131,8 +138,8 @@ def run(dev, batch: int = 4096, n_pts: int = 1024, reps: int = 5) -> dict:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=4096, help="scenarios (the JAX tool's PROF_BATCH)")
-    ap.add_argument("--points", type=int, default=1024, help="cloud points per scenario")
+    ap.add_argument("--batch", type=int, default=BATCH, help="scenarios (the JAX tool's PROF_BATCH)")
+    ap.add_argument("--points", type=int, default=N_POINTS, help="cloud points per scenario")
     ap.add_argument("--reps", type=int, default=5, help="timed calls per component")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -149,8 +156,11 @@ def main(argv=None) -> dict:
     out = run(dev, args.batch, args.points, args.reps)
     recs = out["records"]
     slope = (recs["solve_iters10"]["p50_ms"] - recs["solve_iters1"]["p50_ms"]) / 9
+    busy1, busy10 = recs["solve_iters1"]["device_ms"], recs["solve_iters10"]["device_ms"]
     tail = {"device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu", "batch": args.batch,
-            "per_iteration_ms": round(slope, 4), "card": card() if dev.type == "cuda" else None}
+            "per_iteration_ms": round(slope, 4),
+            "per_iteration_device_ms": None if busy1 is None else round((busy10 - busy1) / 9, 4),
+            "card": card() if dev.type == "cuda" else None}
     print(json.dumps(tail), flush=True)
     return {"records": recs, **tail, "us_iters10": out["us_iters10"]}
 

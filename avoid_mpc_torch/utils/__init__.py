@@ -1,0 +1,1 @@
+from avoid_mpc_torch.utils import quaternion  # noqa: F401

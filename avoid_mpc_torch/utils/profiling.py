@@ -7,12 +7,16 @@
 - :func:`timed`: wall time of a call, the device synchronised before and
   after;
 - :func:`trace`: a ``torch.profiler`` session written as a Chrome trace;
-- :func:`per_call_ms`, :func:`device_time`, :func:`kernel_launches`: what
-  the measurement tools (``tools/profile_solver``, ``bench_matrix``,
-  ``attribute_tick``, ``bench_single_robot``, ``probe_single_robot``)
+- :func:`profiled`: the one place that repeats a profiler session which
+  lost kernel records;
+- :func:`per_call_ms`, :func:`device_time`, :func:`kernel_launches`,
+  :func:`chain_stats`: what the measurement tools and probes
+  (``tools/profile_solver``, ``bench_matrix``, ``attribute_tick``, ...)
   report of each call: its time (CUDA events on the card, the host clock
   elsewhere), the card's busy time and each kernel's device time from
-  ``torch.profiler``, and the launches of the hand-written kernels.
+  ``torch.profiler`` with the records the session kept
+  (:func:`kernel_totals`: a session can lose some), and the launches of
+  the hand-written kernels.
 """
 
 from __future__ import annotations
@@ -67,21 +71,32 @@ def timed(fn: Callable, *args, **kwargs):
 
 
 @contextlib.contextmanager
+def session(cuda: bool, settle_s: float = 0.0):
+    """A ``torch.profiler`` session of the block (host, and the card if
+    ``cuda``), started and stopped with the device idle; the block starts
+    ``settle_s`` seconds after the session (``tools/probe_profiler``
+    measures whether that changes which records a session keeps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
+        time.sleep(settle_s)
+        yield prof
+        _sync()
+
+
+@contextlib.contextmanager
 def trace(logdir: str):
     """Profile the block (host, and the card when there is one) and write
     ``logdir/trace.json``: ``with trace('runs/trace'): step()``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=acts) as prof:
+    with session(torch.cuda.is_available()) as prof:
         yield prof
-        _sync()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 KERNELS = ("knn_topk", "sqp_solve", "riccati_backward", "line_search")  # wrappers with a launch count
-PROFILE_TRIES = 4  # a profiler session can come back without device records; it is repeated
+PROFILE_TRIES = 4  # a profiler session can lose kernel records; :func:`profiled` repeats it
 
 
 def kernel_launches() -> dict[str, int]:
@@ -124,28 +139,81 @@ def per_call_ms(fn: Callable, reps: int, device: torch.device) -> list[float]:
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(reps)]
 
 
-def device_time(fn: Callable, reps: int = 3, device: torch.device | None = None) -> dict | None:
-    """The card's work in one call of ``fn``, means over ``reps`` calls
-    from ``torch.profiler``'s device records: ``busy_ms`` (every kernel and
-    copy) and ``kernels`` (ms of each hand-written kernel, by wrapper
-    name).  None off the card.  A session that kept no device record is
-    repeated, up to PROFILE_TRIES times."""
-    if device is None or device.type != "cuda":
-        return None
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def kernel_totals(events, reps: int, launched: dict[str, int]) -> dict:
+    """Aggregate one profiler session's device events (objects with
+    ``key``, ``count`` and ``self_device_time_total`` in microseconds, as
+    ``key_averages()`` gives them) over ``reps`` calls during which the
+    wrapper ``k`` of each key of ``launched`` launched its kernel
+    (``k_kernel``) ``launched[k]`` times.
 
-    evs = []
-    for _ in range(PROFILE_TRIES):
-        torch.cuda.synchronize(device)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    Returns ``busy_ms`` (every event, per call), ``kernels`` (each
+    kernel's ms per call), ``counts`` (its records in the session),
+    ``want`` (its launches) and ``complete`` (every count equals its
+    want).  Where a session kept fewer records than the kernel was
+    launched, its time per call is the mean record times the launches per
+    call, never the total over ``reps``; with no record at all it is
+    None."""
+    counts = {k: sum(e.count for e in events if f"{k}_kernel" in e.key) for k in launched}
+    kernels = {}
+    for k, n in launched.items():
+        total = sum(e.self_device_time_total for e in events if f"{k}_kernel" in e.key) / 1e3
+        if counts[k] == n:
+            kernels[k] = total / reps
+        else:
+            kernels[k] = total / counts[k] * n / reps if counts[k] else None
+    return {"busy_ms": sum(e.self_device_time_total for e in events) / 1e3 / reps, "kernels": kernels,
+            "counts": counts, "want": dict(launched), "complete": counts == launched}
+
+
+def profiled(fn: Callable, reps: int = 1, counters: Callable[[], dict[str, int]] = kernel_launches,
+             cuda: bool = True):
+    """``reps`` calls of ``fn`` in one profiler :func:`session` (of the
+    card too if ``cuda``), and the one policy for a session that loses
+    records: the session is repeated, up to PROFILE_TRIES times, until
+    each kernel's records equal the launches that ``counters`` (wrapper
+    name -> launch count) counted during it, and a session on the card
+    kept some device record.  Returns (the last session's profiler,
+    :func:`kernel_totals` of its device events with ``tries`` and those
+    ``events``); its ``complete`` says whether the records matched."""
+    from torch.autograd import DeviceType
+
+    for tries in range(1, PROFILE_TRIES + 1):
+        before = counters()
+        with session(cuda) as prof:
             for _ in range(reps):
                 fn()
-            torch.cuda.synchronize(device)
+        launched = {k: v - before[k] for k, v in counters().items()}
         evs = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-        if evs:
+        out = kernel_totals(evs, reps, launched)
+        if out["complete"] and (evs or not cuda):
             break
-    return {"busy_ms": sum(e.self_device_time_total for e in evs) / 1e3 / reps,
-            "kernels": {k: sum(e.self_device_time_total for e in evs if f"{k}_kernel" in e.key) / 1e3 / reps
-                        for k in KERNELS}}
+    return prof, {**out, "tries": tries, "events": evs}
+
+
+def device_time(fn: Callable, reps: int = 3, device: torch.device | None = None,
+                counters: Callable[[], dict[str, int]] = kernel_launches) -> dict | None:
+    """The card's work in one call of ``fn``: :func:`profiled` over
+    ``reps`` calls.  None off the card."""
+    if device is None or device.type != "cuda":
+        return None
+    return profiled(fn, reps, counters)[1]
+
+
+def chain_stats(call: Callable, chain: int, reps: int, device: torch.device) -> dict:
+    """What the tools report of ``call``, a run of ``chain`` chained
+    iterations: one untimed call (its wall time ``compile_s``, which builds
+    the kernels at first use, and its launches), ``reps`` calls timed by
+    :func:`per_call_ms` and one profiled by :func:`device_time`.  Per
+    iteration: ``p50_ms`` and ``min_ms`` of the timed calls, ``device_ms``
+    (busy), ``kernel_ms`` and ``launches``; ``p50_call_ms`` per call and
+    ``profile_complete``.  The device keys are None off the card."""
+    (_, launches), compile_s = timed(launches_of, call)
+    ms = per_call_ms(call, reps, device)
+    dt = device_time(call, reps=1, device=device)
+    p50 = float(np.median(ms))
+    return {"p50_ms": p50 / chain, "min_ms": min(ms) / chain, "p50_call_ms": p50, "compile_s": compile_s,
+            "device_ms": None if dt is None else dt["busy_ms"] / chain,
+            "kernel_ms": None if dt is None else {k: v / chain for k, v in dt["kernels"].items() if v},
+            "profile_complete": None if dt is None else dt["complete"],
+            "launches": {k: v / chain for k, v in launches.items() if v}}

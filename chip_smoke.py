@@ -151,7 +151,28 @@ ticks, once with the fused solve and once with the per-phase solve
     frame through the video stream (bytes equal), an ad-hoc exchange, and
     phase 11's ``EngineState`` through ``save_checkpoint`` /
     ``load_checkpoint`` (bit-equal, on the card);
-20. a ``kernels`` JSON line; the last line is the device JSON.
+20. the probes, each through its ``main`` at full width: (a)
+    ``tools/probe_profiler`` in this process and in a fresh one (how many
+    sessions of 5 flagship ticks lose kernel records: reported), then
+    ``tools/trace_report`` over a capture of 5 flagship ticks at phase 5's
+    last inputs in a fresh process: its records of ``knn_topk_kernel`` and
+    ``sqp_solve_kernel`` equal the launches and its totals are within 10%
+    of the kernels line's times x launches; (b) ``tools/roofline``: the
+    step at a fixed 10 iterations (grad_tol 0), its SQP bound 0.2067 ms to
+    4 digits and its early-exit bound equal to phase 3's from the same
+    updates; (c) ``tools/probe_fused_split``: knn_only, solve_only and
+    full_step over 16 chained ticks, full_step's first and last tick equal
+    to the fused step's chain, knn_only + solve_only busy within 15% of
+    full_step's; (d)
+    ``tools/probe_knn_paths`` at (1024, 30, 10240) and (4096, 20, 1024):
+    the kernel route equal to ``knn_plain``, the matrix route on >= 99.9%
+    of slots with exact distances there; (e) ``tools/probe_compaction``
+    (B=1024, P=10240, Q=32, M=512): each strategy's candidates equal
+    ``cull_by_bbox``'s where a scenario's in-box count is <= M and its
+    k-NN distances equal brute force's wherever those are within R_CUT;
+    (f) ``tools/diagnose_fused_outlier``: the golden record (>= 120 of 256
+    mutually converged at max |du0| <= 1.0445e-4) and phase 4's numbers;
+21. a ``kernels`` JSON line; the last line is the device JSON.
 
 Kernel times (phases 5, 9, 10 and the kernels line) are the kernel's own
 device time from ``torch.profiler``'s kernel records; CUDA events around
@@ -167,6 +188,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -176,13 +198,11 @@ B, N_HORIZON, N_PTS, K_NN = 4096, 20, 1024, 3
 TICKS, WARMUP_TICKS = 10, 3
 MB_CHECK_ITERS, MB_ITERS = 64, 1 << 20  # microbench: the check, and the cycle counts (a few seconds)
 MB_TIMED = ("exp", "ilp8x4", 256)  # the microbench launch timed for the kernels line
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
-F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
-# The k-NN distance's 3 subtractions, 3 products and 2 sums are each rounded
-# on their own (no FMA contraction, or it would not equal its plain twin bit
-# for bit), so they count as instructions at one per lane per clock: 132 SMs
-# x 128 lanes x 1.98 GHz, half of the FMA-counting F32_OPS_PER_S.
-F32_INSTR_PER_S = 33.5e12
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+if (ROOT / "avoid_mpc_torch").is_dir():  # outside a checkout main() says so and exits 2
+    from avoid_mpc_torch.tools.roofline import F32_INSTR_PER_S, bound_ms, knn_counts  # the H100 peaks, defined once
 
 failures: list[str] = []
 
@@ -211,80 +231,60 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-PROFILE_TRIES = 4  # a profiler session can come back without device records; it is repeated
-_profiler_warm = False
+def counters() -> dict:
+    """The launch count of every kernel wrapper, the microbench's too."""
+    from avoid_mpc_torch.tools.op_microbench import op_chain
+    from avoid_mpc_torch.utils.profiling import kernel_launches
+
+    return {**kernel_launches(), "op_chain": op_chain.launches}
 
 
-def _device_events(fn, reps: int = 1, want=bool):
-    """The device-side events (kernels, copies) of ``reps`` calls of
-    ``fn``, aggregated by name, from ``torch.profiler``.  The session is
-    repeated, up to PROFILE_TRIES times, until ``want(events)`` holds; the
-    last session's events are returned either way.  The process's first
-    session is a throwaway one, as CUPTI's start-up can lose its records."""
-    global _profiler_warm
+def device_time(fn, reps: int) -> dict:
+    """``utils/profiling.device_time`` of ``fn`` over ``reps`` calls, every
+    wrapper counted: the one policy for a profiler session that loses
+    kernel records (repeated up to PROFILE_TRIES times).  A note says
+    where no session kept them all."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    if not _profiler_warm:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-            torch.ones(1024, device="cuda").sum()
-            torch.cuda.synchronize()
-        _profiler_warm = True
-    for attempt in range(1, PROFILE_TRIES + 1):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-        if want(evs):
-            break
-        print(f"  note: profiler session {attempt} of {PROFILE_TRIES} lacked the records it was run for", flush=True)
-    return evs
+    from avoid_mpc_torch.utils import profiling
+
+    dt = profiling.device_time(fn, reps, torch.device("cuda"), counters=counters)
+    if not dt["complete"]:
+        print(f"  note: {dt['tries']} profiler sessions kept kernel records {dt['counts']} for launches "
+              f"{dt['want']}", flush=True)
+    return dt
 
 
 def device_busy(fn, reps: int = 3) -> tuple[float, int, float]:
     """(ms the device is busy with the kernels and copies of one call of
     ``fn``, number of host-to-device copies among them, ms of those copies),
     each the mean over ``reps`` calls."""
-    evs = _device_events(fn, reps)
-    htod = [e for e in evs if e.key.startswith("Memcpy HtoD")]
-    return (sum(e.self_device_time_total for e in evs) / 1e3 / reps, sum(e.count for e in htod) // reps,
+    dt = device_time(fn, reps)
+    htod = [e for e in dt["events"] if e.key.startswith("Memcpy HtoD")]
+    return (dt["busy_ms"], sum(e.count for e in htod) // reps,
             sum(e.self_device_time_total for e in htod) / 1e3 / reps)
 
 
-def kernel_ms(fn, kernel: str, reps: int) -> float:
-    """Mean device time of one launch of the CUDA kernel named ``kernel``
-    over ``reps`` calls of ``fn`` (one launch each), from the profiler's
-    kernel records: the kernel alone, without the host work of its wrapper
-    or the gaps between launches that CUDA events around the calls see.
-    (The profiler may miss a record of a short kernel, so the mean is over
-    the records it kept.)  Where no session of PROFILE_TRIES keeps one,
-    the time is the CUDA events' mean over back-to-back calls, an upper
-    bound that includes the wrapper's host work, and a line says so."""
+def kernel_ms(fn, wrapper: str, reps: int) -> float:
+    """Mean device time of one launch of the kernel of ``wrapper`` (a key
+    of :func:`counters`) over ``reps`` calls of ``fn`` (one launch each),
+    from the profiler's kernel records: the kernel alone, without the
+    host work of its wrapper or the gaps between launches that CUDA events
+    around the calls see.  Where no session keeps a record of it, the time
+    is the CUDA events' mean over back-to-back calls, an upper bound that
+    includes the wrapper's host work, and a line says so."""
     fn()
-    evs = _device_events(fn, reps, want=lambda evs: any(kernel in e.key for e in evs))
-    evs = [e for e in evs if kernel in e.key]
-    n = sum(e.count for e in evs)
-    if n == 0:
+    ms = device_time(fn, reps)["kernels"][wrapper]
+    if ms is None:
         ms = cuda_ms(fn, reps)
-        print(f"  note: the profiler kept no record of {kernel} in {PROFILE_TRIES} sessions; its time "
-              f"{ms:.4f} ms is from CUDA events around {reps} back-to-back calls", flush=True)
-        return ms
-    return sum(e.self_device_time_total for e in evs) / n / 1e3
+        print(f"  note: the profiler kept no record of {wrapper}_kernel; its time {ms:.4f} ms is from CUDA "
+              f"events around {reps} back-to-back calls", flush=True)
+    return ms
 
 
 def disagree(got, want, tol: float):
     """Per-scenario mask: some element outside |got - want| <= tol + tol |want|."""
     return ((got - want).abs() > tol + tol * want.abs()).reshape(got.shape[0], -1).any(dim=1)
-
-
-def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # Edge shapes of phases 6 and 7: (name, B, N, K obstacles, n_alphas, tight bounds).
@@ -512,7 +512,7 @@ def knn_edge_shapes(dev) -> tuple[float, dict]:
     for name in ("dedupe", "rescue"):
         qs, pts, mask = knn_shapes.make_inputs(knn_shapes.EDGE_CASES[name], dev)
         k = knn_shapes.EDGE_CASES[name][3]
-        times[name] = kernel_ms(lambda: knn_cuda.knn_topk(qs, pts, mask, k), "knn_topk_kernel", reps=20)
+        times[name] = kernel_ms(lambda: knn_cuda.knn_topk(qs, pts, mask, k), "knn_topk", reps=20)
     print(f"phase 2 knn times (device time, profiler): dedupe {times['dedupe']:.4f} ms, rescue "
           f"{times['rescue']:.4f} ms", flush=True)
     # the engine tick's and the rolling map's shapes: identity, time and bound
@@ -522,9 +522,9 @@ def knn_edge_shapes(dev) -> tuple[float, dict]:
         check(same and e == 0.0, f"knn {name} {case[:4]}: kernel differs from plain (max abs err {e})")
         b, q, p, k = case[:4]
         qs, pts, mask = knn_shapes.make_inputs(case, dev)
-        ms = kernel_ms(lambda: knn_cuda.knn_topk(qs, pts, mask, k), "knn_topk_kernel", reps=20)
-        n_bytes = b * q * 3 * 4 + b * p * 3 * 4 + b * p + b * q * k * 4 * 4
-        bound, by = bound_ms(n_bytes, 8 * q * int(mask.sum()), F32_INSTR_PER_S)
+        ms = kernel_ms(lambda: knn_cuda.knn_topk(qs, pts, mask, k), "knn_topk", reps=20)
+        n_ops, n_bytes = knn_counts(b, q, p, k, int(mask.sum()))
+        bound, by = bound_ms(n_bytes, n_ops, F32_INSTR_PER_S)
         geo = knn_cuda.launch_geometry(b, q, p, k)
         if not case[4].startswith("lattice"):
             times[name] = ms
@@ -566,11 +566,8 @@ def zero_launch_counts() -> None:
 def tick_breakdown(fn, reps: int = 3) -> tuple[float, dict]:
     """(device busy ms of one call of ``fn``, {kernel: ms per call}) for the
     k-NN and SQP kernels, means over ``reps`` calls, profiler records."""
-    evs = _device_events(fn, reps, want=lambda evs: any("sqp_solve_kernel" in e.key for e in evs))
-    busy = sum(e.self_device_time_total for e in evs) / 1e3 / reps
-    parts = {k: sum(e.self_device_time_total for e in evs if k in e.key) / 1e3 / reps
-             for k in ("knn_topk_kernel", "sqp_solve_kernel")}
-    return busy, parts
+    dt = device_time(fn, reps)
+    return dt["busy_ms"], {f"{k}_kernel": dt["kernels"][k] or 0.0 for k in ("knn_topk", "sqp_solve")}
 
 
 def host_sync(fn) -> str | None:
@@ -1264,15 +1261,15 @@ def scale_out(dev, smi: str) -> dict:
     same = torch.equal(dk, dp) and torch.equal(pk, pp)
     shard_err = float((pk - pp).abs().max())
     check(same, f"knn at the point shard's inputs differs from plain (max abs err {shard_err})")
-    shard_ms = kernel_ms(lambda: knn_topk(qs, ws, wm, K_NN), "knn_topk_kernel", reps=20)
+    shard_ms = kernel_ms(lambda: knn_topk(qs, ws, wm, K_NN), "knn_topk", reps=20)
     shard_plain_ms = cuda_ms(lambda: knn_plain(qs, ws, wm, K_NN), reps=3)
     cdist_ms = cuda_ms(lambda: torch.cdist(qs, ws, compute_mode="donot_use_mm_for_euclid_dist"), reps=5)
     cd = torch.cdist(qs, ws, compute_mode="donot_use_mm_for_euclid_dist")
     topk_ms = cuda_ms(lambda: torch.topk(cd, K_NN, dim=-1, largest=False), reps=5)
     del cd
     q_n, p_n = qs.shape[1], ws.shape[1]
-    shard_bytes = q_n * 3 * 4 + p_n * 3 * 4 + p_n + q_n * K_NN * 4 * 4
-    shard_bound, shard_by = bound_ms(shard_bytes, 8 * q_n * int(wm.sum()), F32_INSTR_PER_S)
+    shard_ops, shard_bytes = knn_counts(1, q_n, p_n, K_NN, int(wm.sum()))
+    shard_bound, shard_by = bound_ms(shard_bytes, shard_ops, F32_INSTR_PER_S)
     print(f"phase 17 knn at the point shard (B=1, Q={q_n}, P={p_n}, k={K_NN}, every point valid): identical to plain "
           f"{same}, kernel {shard_ms:.4f} ms (device time, profiler), bound {shard_bound:.4f} ms ({shard_by}), ratio "
           f"{shard_ms / shard_bound:.1f}x, plain {shard_plain_ms:.3f} ms, cdist {cdist_ms:.3f} + topk {topk_ms:.3f} ms; "
@@ -1811,8 +1808,9 @@ def tools_phase(dev, flagship, forest_state) -> dict:
     print(f"phase 19a profile_solver (B={B}) in {time.perf_counter() - t0:.1f} s: " + "; ".join(
         f"{n} p50 {r['p50_ms']:.4f} ms, busy {r['device_ms']:.4f} ms, kernels {r['kernel_ms']}, launches "
         f"{r['launches']}" for n, r in recs.items()) + f"; per-iteration slope (t10 - t1) / 9 = {slope:.4f} ms against the SQP kernel's "
-        f"(k10 - k1) / 9 = {(sqp10 - sqp1) / 9:.4f} ms; u0 of solve_iters10 equal to phase 5's fused step: {same}; "
-        f"launches {launches}", flush=True)
+        f"(k10 - k1) / 9 = {(sqp10 - sqp1) / 9:.4f} ms, the busy slope {f4(prof['per_iteration_device_ms'])} ms; "
+        f"records {[r['kernel_records'] for r in recs.values()]}; u0 of solve_iters10 equal to phase 5's fused step: "
+        f"{same}; launches {launches}", flush=True)
     res["profile_solver"] = {"records": recs, "slope_ms": slope, "sqp_slope_ms": (sqp10 - sqp1) / 9}
 
     # 19b bench_matrix
@@ -1997,6 +1995,227 @@ def host_storage(dev, out_dir, forest_state) -> None:
           f"({path.stat().st_size} B), bit-equal on {back.ref_path.device}: {same}", flush=True)
 
 
+# Phase 20: the six probes, each through its main at full width.
+TRACE_TICKS = 5  # flagship ticks traced for trace_report, and in each of probe_profiler's sessions
+PROFILER_SESSIONS = 12  # probe_profiler's sessions per settle time
+PROFILER_SETTLE_MS = (0.0, 100.0)  # its settle times (0, 1, 10 and 100 ms lost alike in this process)
+PROBE_TOLS = {"trace_total_rel": 0.10, "split_busy_rel": 0.15, "knn_paths_agree": 0.999}
+GOLDEN_RECORD = (120, 1.0445e-4)  # mutually converged of 256, max |du0| (PERF.md: 120 / 256 at 1.044e-4)
+FIXED_BUDGET_BOUND_MS = 0.2067  # the SQP kernel's bound at 10 updates for all 4096 scenarios, to 4 digits
+
+
+def f4(v) -> str:
+    """A device number to 4 decimals, or "None" where it was not measured."""
+    return "None" if v is None else f"{v:.4f}"
+
+
+def probes_phase(dev, flagship, refs: dict) -> dict:
+    """Phase 20: (a) ``probe_profiler``'s record losses in this process
+    and in a fresh one, reported, and ``trace_report`` over TRACE_TICKS
+    flagship ticks chained from phase 5's last inputs, captured in a fresh
+    process (records equal the launches, totals within 10% of the kernels
+    line's times); (b)
+    ``roofline`` (its early-exit bound equals phase 3's from the same
+    updates, its fixed-budget bound FIXED_BUDGET_BOUND_MS); (c)
+    ``probe_fused_split`` (full_step's controls after the first and the
+    last tick of its timed chain equal the fused step's chained the same
+    way, knn_only + solve_only busy within 15% of full_step's); (d)
+    ``probe_knn_paths`` (the kernel route equal to ``knn_plain``, the
+    matrix route on >= 99.9% of slots with exact distances there); (e)
+    ``probe_compaction`` (each strategy's candidates equal
+    ``cull_by_bbox``'s where a scenario's in-box count is <= M, its k-NN
+    distances equal brute force's wherever brute force's are within
+    R_CUT); (f) ``diagnose_fused_outlier`` (the golden record, and phase
+    4's numbers).  Returns what the kernels line takes."""
+    import torch
+
+    from avoid_mpc_torch import step
+    from avoid_mpc_torch.ops.knn import knn_plain
+    from avoid_mpc_torch.runtime import native
+    from avoid_mpc_torch.tools import (diagnose_fused_outlier, probe_compaction, probe_fused_split,
+                                       probe_knn_paths, probe_profiler, roofline)
+
+    x0, ref, target, pts, mask, us0, sp, hp = flagship
+    out_dir = native.BUILD_DIR.parent / "tools"
+    res = {}
+
+    # 20a the profiler's record losses in this process and in a fresh one, then trace_report over phase 5's
+    # ticks, captured in a fresh process: in this one every session of a fused tick loses its first k-NN record
+    t0 = time.perf_counter()
+    settle = ",".join(f"{x:g}" for x in PROFILER_SETTLE_MS)
+    r = subprocess.run([sys.executable, "-m", "avoid_mpc_torch.tools.probe_profiler", "--sessions",
+                        str(PROFILER_SESSIONS), "--ticks", str(TRACE_TICKS), "--settle-ms", settle, "--device", "cuda"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0, f"20a probe_profiler in a fresh process exited {r.returncode}: {r.stderr[-2000:]}")
+    settles = {"this process": probe_profiler.run(dev, PROFILER_SESSIONS, TRACE_TICKS, PROFILER_SETTLE_MS),
+               "a fresh process": [json.loads(x) for x in r.stdout.splitlines() if x.startswith('{"settle_ms"')]}
+    print(f"phase 20a probe_profiler ({PROFILER_SESSIONS} sessions of {TRACE_TICKS} flagship ticks per settle time, "
+          f"none repeated) in {time.perf_counter() - t0:.1f} s: " + "; ".join(
+              f"in {where}, settle {x['settle_ms']:g} ms: {x['short_sessions']} of {x['sessions']} sessions short, "
+              f"records {x['records']} for launches {x['launches']}, orders {sorted(set(x['short_orders']))}"
+              for where, xs in settles.items() for x in xs), flush=True)
+    t0 = time.perf_counter()
+    logdir = out_dir / "trace"
+    shutil.rmtree(logdir, ignore_errors=True)  # trace_report captures only into a path that does not exist
+    r = subprocess.run([sys.executable, "-m", "avoid_mpc_torch.tools.trace_report", str(logdir), "--group",
+                        "--warmup", str(WARMUP_TICKS + TICKS - 1), "--ticks", str(TRACE_TICKS), "--device", "cuda"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    lines = [json.loads(x) for x in r.stdout.splitlines() if x.startswith("{")]
+    check(r.returncode == 0 and len(lines) > 0, f"20a trace_report exited {r.returncode}: {r.stderr[-2000:]}")
+    rep, rows = (lines[0], {x["name"]: x for x in lines[1:]}) if lines else ({}, {})
+    names = {"knn_topk": "knn_topk_kernel", "sqp_solve": "sqp_solve_kernel"}
+    launches = rep.get("launches") or {}
+    recs = {k: rows.get(n, {}).get("records", 0) for k, n in names.items()}
+    check(all(recs[k] == launches.get(k) == TRACE_TICKS for k in names),
+          f"20a trace_report records {recs} != launches {launches} ({TRACE_TICKS} ticks, "
+          f"{rep.get('sessions')} sessions)")
+    rel = {}
+    for k, n in names.items():
+        want = refs[f"{k}_ms"] * launches.get(k, 0)
+        rel[k] = abs(rows.get(n, {}).get("total_ms", 0.0) - want) / want if want else math.inf
+        check(rel[k] <= PROBE_TOLS["trace_total_rel"],
+              f"20a trace_report {n} total {rows.get(n, {}).get('total_ms')} ms vs {want:.4f} ms (rel {rel[k]:.3f})")
+    print(f"phase 20a trace_report over {TRACE_TICKS} flagship ticks from phase 5's inputs, in a fresh process, in "
+          f"{rep.get('sessions')} profiler session(s) (streams {rep.get('streams')}, device total "
+          f"{f4(rep.get('total_device_ms'))} ms) in {time.perf_counter() - t0:.1f} s: " + "; ".join(
+              f"{n} {rows[n]['total_ms']:.4f} ms in {rows[n]['records']} records (mean {rows[n]['mean_ms']:.4f}, "
+              f"share {rows[n]['share']:.3f}) against the kernels line's {refs[k + '_ms']:.4f} x {launches.get(k)} "
+              f"(rel {rel[k]:.4f})" for k, n in names.items() if n in rows) + f"; launches {launches}", flush=True)
+    res["trace_report"] = {"records": recs, "rel": rel, "sessions": rep.get("sessions"), "probe_profiler": settles}
+
+    # 20b roofline
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    roof = roofline.main(["--device", "cuda", "--batch", str(B), "--points", str(N_PTS)])
+    launches = launch_counts()
+    sqp_r, knn_r, early = roof["kernels"]["sqp_solve"], roof["kernels"]["knn_topk"], roof["early_exit"]
+    check(early["iterations"] == refs["cold_iterations"], "20b roofline's early-exit updates differ from phase 3's")
+    check(early["bound_ms"] == refs["cold_bound"],
+          f"20b roofline early-exit bound {early['bound_ms']} != phase 3's {refs['cold_bound']}")
+    check(round(sqp_r["bound_ms"], 4) == FIXED_BUDGET_BOUND_MS,
+          f"20b fixed-budget bound {sqp_r['bound_ms']:.6f} ms != {FIXED_BUDGET_BOUND_MS}")
+    check(sqp_r["kernel_ms"] is not None and knn_r["kernel_ms"] is not None and launches["sqp_solve"] > 0
+          and launches["knn_topk"] > 0, f"20b roofline: a kernel unmeasured or unlaunched ({launches})")
+    print(f"phase 20b roofline (B={B}, fixed {roof['sqp_iters']} iterations, grad_tol 0) in "
+          f"{time.perf_counter() - t0:.1f} s: sqp kernel {f4(sqp_r['kernel_ms'])} ms against {sqp_r['bound_ms']:.4f} "
+          f"({sqp_r['bound_by']}, {sqp_r['operations'] / 1e9:.3f} G ops, ratio {f4(sqp_r['ratio'])}x); knn "
+          f"{f4(knn_r['kernel_ms'])} ms against {knn_r['bound_ms']:.4f} ({knn_r['bound_by']}); step p50 "
+          f"{roof['measured_p50_step_ms']:.4f} ms, busy {f4(roof['device_busy_ms'])}, h100 t_min "
+          f"{roof['h100']['t_min_ms']:.4f} ms; early exit (grad_tol {early['grad_tol']}): mean updates "
+          f"{early['iterations_mean']:.3f}, bound {early['bound_ms']:.4f} ms (phase 3: {refs['cold_bound']:.4f}), "
+          f"kernel {f4(early['kernel_ms'])} ms; profiles complete {roof['profile_complete']} / "
+          f"{early['profile_complete']}; launches {launches}", flush=True)
+    res["roofline"] = roof
+
+    # 20c probe_fused_split
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    split = probe_fused_split.main(["--device", "cuda", "--batch", str(B), "--points", str(N_PTS)])
+    launches = launch_counts()
+    recs = split["records"]
+    us_c, ref_c = us0, ref
+    for i in range(recs["full_step"]["chain"]):
+        us_c, ref_c, _, _ = step.solve_step(x0, ref_c, target, pts, mask, us_c, sp, hp)
+        if i == 0:
+            us_1 = us_c
+    same = torch.equal(split["us_tick1"], us_1) and torch.equal(split["us_last"], us_c)
+    check(same, "20c full_step's chain differs from the fused step chained on the same inputs (first or last tick)")
+    want = {"knn_only": {"knn_topk": 1.0}, "solve_only": {"sqp_solve": 1.0},
+            "full_step": {"knn_topk": 1.0, "sqp_solve": 1.0}}
+    for n, w in want.items():
+        check(recs[n]["launches_per_tick"] == w, f"20c {n} launches per tick {recs[n]['launches_per_tick']} != {w}")
+    busy = [recs[n]["device_ms_per_tick"] for n in ("knn_only", "solve_only", "full_step")]
+    parts, whole = (None, None) if None in busy else (busy[0] + busy[1], busy[2])
+    check(whole is not None and abs(parts - whole) <= PROBE_TOLS["split_busy_rel"] * whole,
+          f"20c knn_only + solve_only busy {parts} ms vs full_step {whole} ms")
+    print(f"phase 20c probe_fused_split (B={B}, chain {recs['full_step']['chain']}) in {time.perf_counter() - t0:.1f} "
+          f"s: " + "; ".join(f"{n} p50 {r['p50_tick_ms']:.4f} ms a tick, busy {f4(r['device_ms_per_tick'])}, kernels "
+                             f"{r['kernel_ms_per_tick']}" for n, r in recs.items()) +
+          f"; knn_only + solve_only busy {f4(parts)} vs full_step {f4(whole)} ms; first and last tick equal to the "
+          f"fused step's chain: "
+          f"{same}; launches {launches}", flush=True)
+    res["probe_fused_split"] = recs
+
+    # 20d probe_knn_paths
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    paths = probe_knn_paths.main(["--device", "cuda"])
+    launches = launch_counts()
+    check(launches["knn_topk"] > 0, f"20d probe_knn_paths launches {launches}")
+    for key, outs in paths["outputs"].items():
+        b, q, p = (int(v) for v in key.split("x"))
+        qs, ps, ms = probe_knn_paths.make_inputs(b, q, p, dev)
+        d_p, p_p = knn_plain(qs, ps, ms, probe_knn_paths.K)
+        same = torch.equal(outs["kernel"][0], d_p) and torch.equal(outs["kernel"][1], p_p)
+        a = paths["agreement"][key]
+        check(same, f"20d kernel route differs from knn_plain at {key}")
+        check(a["same_point_frac"] >= PROBE_TOLS["knn_paths_agree"] and a["max_dist_delta_on_agreeing"] == 0.0,
+              f"20d matrix route at {key}: {a}")
+        del qs, ps, ms, d_p, p_p
+    print(f"phase 20d probe_knn_paths in {time.perf_counter() - t0:.1f} s: " + "; ".join(
+        f"{r['path']} {r['B']}x{r['Q']}x{r['P']} p50 {r['p50_ms_per_call']:.4f} ms a call, busy "
+        f"{f4(r['device_ms_per_call'])}" for r in paths["records"]) + "; agreement " + "; ".join(
+        f"{k}: same point {a['same_point_frac']:.6f}, max |dd| on agreeing {a['max_dist_delta_on_agreeing']}, on "
+        f"finite {a['max_dist_delta_on_finite']:.3e}" for k, a in paths["agreement"].items()) +
+        f"; kernel route equal to knn_plain; launches {launches}", flush=True)
+    res["probe_knn_paths"] = {"records": paths["records"], "agreement": paths["agreement"]}
+    del paths
+
+    # 20e probe_compaction
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    comp = probe_compaction.main(["--device", "cuda"])
+    launches = launch_counts()
+    outs, m = comp["outputs"], comp["payload"]["M"]
+    fits = outs["count"] <= m
+    d_b = outs["brute"][0]
+    near = (d_b <= probe_compaction.R_CUT) & fits[:, None, None]
+    ref_c = outs["searchsorted"]
+    equal_share = {}
+    for name in probe_compaction.STRATEGIES:
+        o = outs[name]
+        same_mask = torch.equal(o["cmask"][fits], ref_c["cmask"][fits])
+        slot = ref_c["cmask"] & fits[:, None]
+        same_cand = torch.equal(o["cand"][slot], ref_c["cand"][slot])
+        d = o["knn"][0]
+        check(same_mask and same_cand, f"20e {name}: candidates differ from cull_by_bbox's where the count <= M")
+        check(torch.equal(d[near], d_b[near]), f"20e {name}: k-NN distances within R_CUT differ from brute force's")
+        equal_share[name] = float((d == d_b)[fits].float().mean())
+    check(launches["knn_topk"] > 0, f"20e probe_compaction launches {launches}")
+    res_c = comp["payload"]["results"]
+    print(f"phase 20e probe_compaction (B={comp['payload']['B']}, P={comp['payload']['P']}, Q={comp['payload']['Q']}, "
+          f"M={m}) in {time.perf_counter() - t0:.1f} s: " + ", ".join(f"{k} {v:.4f} ms" for k, v in res_c.items()) +
+          f"; in-box count mean {float(outs['count'].float().mean()):.1f} max {int(outs['count'].max())}, "
+          f"{int(fits.sum())} of {fits.numel()} scenarios <= M; k-NN slots within R_CUT {int(near.sum())} of "
+          f"{near.numel()}; share of slots equal to brute force " +
+          ", ".join(f"{k} {v:.6f}" for k, v in equal_share.items()) + f"; launches {launches}", flush=True)
+    res["probe_compaction"] = {"payload": comp["payload"], "equal_share": equal_share}
+    del comp, outs
+
+    # 20f diagnose_fused_outlier
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    diag = diagnose_fused_outlier.main(["--device", "cuda"])
+    launches = launch_counts()
+    kg, g = diag["kernel_vs_golden"], refs["golden"]
+    check(kg["n_both_converged"] == g["n_both_converged"] and kg["max_du0_both_converged"]
+          == g["max_du0_both_converged"], f"20f {kg} differs from phase 4's {g}")
+    check(kg["n_both_converged"] >= GOLDEN_RECORD[0] and kg["max_du0_both_converged"] <= GOLDEN_RECORD[1],
+          f"20f mutually converged {kg['n_both_converged']} at max |du0| {kg['max_du0_both_converged']:.4e}, "
+          f"record {GOLDEN_RECORD}")
+    check(launches["sqp_solve"] == 1 + len(diag["iterations"]), f"20f sqp launches {launches}")
+    att = diag["attribution"]
+    print(f"phase 20f diagnose_fused_outlier in {time.perf_counter() - t0:.1f} s: mutually converged "
+          f"{kg['n_both_converged']}/{kg['n']} at max |du0| {kg['max_du0_both_converged']:.4e} (phase 4: "
+          f"{g['n_both_converged']}, {g['max_du0_both_converged']:.4e}), worst scenarios {kg['worst_scenarios']} "
+          f"|du0| {kg['worst_du0']}; fork iteration {att['fork_iteration']}, first reg divergence "
+          f"{att['first_reg_divergence_iter']}, accept flip {att['reg_fork_is_linesearch_accept_flip']}, final cost "
+          f"delta rel {att['final_cost_delta_rel']:.3e}, both near-stationary {att['both_near_stationary']}; "
+          f"launches {launches}", flush=True)
+    res["diagnose_fused_outlier"] = diag
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2008,7 +2227,6 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository (avoid_mpc_torch/ is missing)",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(root))
 
     from avoid_mpc_torch import cuda_build, step
     from avoid_mpc_torch.ops.knn import knn_plain
@@ -2098,8 +2316,7 @@ def main() -> int:
     check(same, f"knn kernel differs from plain (max abs err {knn_err})")
     check(bool(torch.isinf(d_k[0, :, 2]).all()) and bool((p_k[0, :, 2] == 1e4).all()),
           "knn: empty slot of the <3-point scenario is not inf / FAR_SENTINEL")
-    knn_bytes = B * N_HORIZON * 3 * 4 + B * N_PTS * 3 * 4 + B * N_PTS + B * N_HORIZON * K_NN * 4 * 4
-    knn_ops = 8 * N_HORIZON * int(mask.sum())  # 3 sub, 3 mul, 2 add per valid (query, point)
+    knn_ops, knn_bytes = knn_counts(B, N_HORIZON, N_PTS, K_NN, int(mask.sum()))  # 3 sub, 3 mul, 2 add a valid pair
     knn_bound, knn_by = bound_ms(knn_bytes, knn_ops, F32_INSTR_PER_S)
     print(f"phase 2 knn: identical={same} max_abs_err={knn_err}, bound {knn_bound:.4f} ms ({knn_by}; bytes "
           f"{bound_ms(knn_bytes, 0)[0]:.4f} ms for {knn_bytes / 1e6:.1f} MB, operations "
@@ -2148,7 +2365,7 @@ def main() -> int:
         print(f"phase 3b sqp iters=10 grad_tol=1e-4 tol_exit={tol_exit}: both-converged {int(both.sum())}/{B} "
               f"max|dus| {du_b:.3e}, converged kernel {cf_k:.4f} plain {cf_p:.4f}, mean updates "
               f"{float(r_k.iterations.float().mean()):.3f}, finite={finite} in_bounds={inb}", flush=True)
-    cold_ms = kernel_ms(lambda: sqp_solve(problem, us0, sp, hp), "sqp_solve_kernel", reps=5)
+    cold_ms = kernel_ms(lambda: sqp_solve(problem, us0, sp, hp), "sqp_solve", reps=5)
     cold_its = r_k.iterations.float()
     cold_ops = flop_count(N_HORIZON, K_NN, hp.n_alphas, hp.boxqp_iters, r_k.iterations.tolist())
     cold_bound = bound_ms(byte_count(B, N_HORIZON, K_NN), cold_ops)[0]
@@ -2161,7 +2378,7 @@ def main() -> int:
     sqp_err = max(sqp_err, sqp_edge_shapes(dev))
 
     # ---- 4. SQP kernel vs the JAX CPU golden ----
-    g = verify_fused.run(dev)
+    g = g_fused = verify_fused.run(dev)
     check(g["ok"], f"golden gate failed: {g}")
     print(f"phase 4 golden: both-converged {g['n_both_converged']}/{g['n']} max|du0| {g['max_du0_both_converged']:.3e} "
           f"(record on TPU v5e: 118/256, 1.04e-4), p95|du0| {g['p95_du0']:.3e}, p95 rel dcost {g['p95_rel_dcost']:.3e}, "
@@ -2197,14 +2414,14 @@ def main() -> int:
     q_in = ref_in[..., 0:3].contiguous()
     _, obs_in = knn_topk(q_in, pts, mask, K_NN)
     prob_in = MPCProblem(x0, ref_in.contiguous(), obs_in, target)
-    knn_ms = kernel_ms(lambda: knn_topk(q_in, pts, mask, K_NN), "knn_topk_kernel", reps=20)
+    knn_ms = kernel_ms(lambda: knn_topk(q_in, pts, mask, K_NN), "knn_topk", reps=20)
     knn_plain_ms = cuda_ms(lambda: knn_plain(q_in, pts, mask, K_NN), reps=5)
     cdist_in = torch.cdist(q_in, pts, compute_mode="donot_use_mm_for_euclid_dist")
     knn_cdist_ms = cuda_ms(lambda: torch.cdist(q_in, pts, compute_mode="donot_use_mm_for_euclid_dist"), reps=5)
     knn_topk_lib_ms = cuda_ms(lambda: torch.topk(cdist_in, K_NN, dim=-1, largest=False), reps=5)
     knn_lib_ms = knn_cdist_ms + knn_topk_lib_ms
     del cdist_in
-    sqp_ms = kernel_ms(lambda: sqp_solve(prob_in, us_in, sp, hp), "sqp_solve_kernel", reps=10)
+    sqp_ms = kernel_ms(lambda: sqp_solve(prob_in, us_in, sp, hp), "sqp_solve", reps=10)
     sqp_call_ms = cuda_ms(lambda: sqp_solve(prob_in, us_in, sp, hp), reps=10, warmup=2)
     r_k = sqp_solve(prob_in, us_in, sp, hp)
     plain_t0.record()
@@ -2230,8 +2447,8 @@ def main() -> int:
           f"{sqp_ms:.3f} + other {other:.3f} ms (host glue, torch ops and idle)", flush=True)
     # where the SQP kernel's time goes, by what the same inputs cost with less of the solve
     hp0 = hp._replace(iters=0, grad_tol=0.0)
-    sqp0_ms = kernel_ms(lambda: sqp_solve(prob_in, us_in, sp, hp0), "sqp_solve_kernel", reps=10)
-    sqp0q_ms = kernel_ms(lambda: sqp_solve(prob_in, us_in, sp, hp0._replace(boxqp_iters=0)), "sqp_solve_kernel",
+    sqp0_ms = kernel_ms(lambda: sqp_solve(prob_in, us_in, sp, hp0), "sqp_solve", reps=10)
+    sqp0q_ms = kernel_ms(lambda: sqp_solve(prob_in, us_in, sp, hp0._replace(boxqp_iters=0)), "sqp_solve",
                          reps=10)
     print(f"phase 5 sqp breakdown at the main path's inputs (profiler): rollout + one sweep (iters=0) {sqp0_ms:.4f} ms, "
           f"of it the box QP's {hp.boxqp_iters} iterations {sqp0_ms - sqp0q_ms:.4f} ms (iters=0, boxqp_iters=0: "
@@ -2342,11 +2559,11 @@ def main() -> int:
     ls_kw = dict(n_alphas=hp_f.n_alphas, lam_omni=cp.lam_omni, margin_v=cp.margin_v, u_hover=cp.u_hover)
     lin_host_ms = cuda_ms(lambda: ilqr._linearize(prob_f, xs_c, us_c, sp_f), reps=10, warmup=2)
     lin_ms = device_busy(lambda: ilqr._linearize(prob_f, xs_c, us_c, sp_f))[0]
-    bw_ms = kernel_ms(lambda: riccati_backward(*bw_args), "riccati_backward_kernel", reps=20)
+    bw_ms = kernel_ms(lambda: riccati_backward(*bw_args), "riccati_backward", reps=20)
     bw_plain_ms = cuda_ms(lambda: ilqr.riccati_backward_plain(*bw_args), reps=3)
-    ls_ms = kernel_ms(lambda: line_search(*ls_args, **ls_kw), "line_search_kernel", reps=20)
+    ls_ms = kernel_ms(lambda: line_search(*ls_args, **ls_kw), "line_search", reps=20)
     ls_plain_ms = cuda_ms(lambda: ilqr.line_search_plain(*ls_args, **ls_kw), reps=3)
-    knn_f_ms = kernel_ms(lambda: knn_topk(ref_fin[..., 0:3].contiguous(), pts, mask, K_NN), "knn_topk_kernel", reps=20)
+    knn_f_ms = kernel_ms(lambda: knn_topk(ref_fin[..., 0:3].contiguous(), pts, mask, K_NN), "knn_topk", reps=20)
     n_bw, n_ls = hp_f.iters + 1, hp_f.iters
     phased_busy, phased_htod, phased_htod_ms = device_busy(
         lambda: step.solve_step(x0, ref_fin, target, pts, mask, us_fin, sp_f, hp_f))
@@ -2387,7 +2604,7 @@ def main() -> int:
     mb_op, mb_mode, mb_n = MB_TIMED
     x_mb = op_microbench.chain_input(mb_mode, dev)
     mb_unroll = op_microbench.MODES[mb_mode][1]
-    mb_ms = kernel_ms(lambda: op_chain(x_mb, mb_op, mb_n, mb_unroll), "op_chain_kernel", reps=20)
+    mb_ms = kernel_ms(lambda: op_chain(x_mb, mb_op, mb_n, mb_unroll), "op_chain", reps=20)
     mb_plain_ms = cuda_ms(lambda: op_chain_plain(x_mb, mb_op, mb_n, mb_unroll), reps=1)
     mb_bound, mb_by = bound_ms(op_microbench.byte_count(mb_mode), op_microbench.flop_count(mb_op, mb_mode, mb_n))
     print(f"phase 10 microbench launch {mb_op} {mb_mode} n_iter={mb_n}: kernel {mb_ms:.4f} ms, plain {mb_plain_ms:.1f} "
@@ -2425,7 +2642,16 @@ def main() -> int:
     # ---- 19. the measurement tools, host and storage ----
     tools_phase(dev, (x0, ref, target, pts, mask, us0, sp, hp), forest["tick"][0])
 
-    # ---- 20. kernels ----
+    # ---- 20. the probes ----
+    t20 = time.perf_counter()
+    probes = probes_phase(dev, (x0, ref, target, pts, mask, us0, sp, hp), {
+        "knn_topk_ms": knn_ms, "sqp_solve_ms": sqp_ms, "cold_bound": cold_bound,
+        "cold_iterations": [int(v) for v in cold_its.tolist()], "golden": g_fused})
+    print(f"phase 20 in {time.perf_counter() - t20:.1f} s", flush=True)
+    fixed = probes["roofline"]["kernels"]["sqp_solve"]
+    fixed_at = f"fixed {probes['roofline']['sqp_iters']}-iteration budget, grad_tol 0 (B={B}, N={N_HORIZON})"
+
+    # ---- 21. kernels ----
     kernels = [
         {"name": "knn_topk", "route": "cuda", "source": "avoid_mpc_torch/csrc/knn.cu",
          "replaces": "avoid_mpc_tpu/ops/pallas_knn.py:113", "launches": launches["knn_topk"],
@@ -2452,8 +2678,9 @@ def main() -> int:
          "max_abs_err": sqp_err, "ms": sqp_ms, "plain_ms": sqp_plain_ms, "bound_ms": sqp_bound,
          "bound_by": sqp_by, "library_ms": None,
          "ms_at": {"forest_10k tick (3 launches)": forest["parts"]["sqp_solve_kernel"],
-                   scale_step: scale["times"]["sharded"]["parts"]["sqp_solve_kernel"]},
-         "bounds_at": {"forest_10k tick (B=1024, N=30)": forest["sqp_bound"], "single robot tick (B=1, N=30)":
+                   scale_step: scale["times"]["sharded"]["parts"]["sqp_solve_kernel"], fixed_at: fixed["kernel_ms"]},
+         "bounds_at": {fixed_at: {"bound_ms": fixed["bound_ms"], "bound_by": fixed["bound_by"]},
+                       "forest_10k tick (B=1024, N=30)": forest["sqp_bound"], "single robot tick (B=1, N=30)":
                        single["sqp_bound"], "fleet closed-loop tick (B=64, N=30)": fleet["sqp_bound"],
                        "single robot closed-loop tick (B=1, N=30)": robot["sqp_bound"]},
          "launches_per_tick": {"scale-out step": scale["launches"]["sqp_solve"],

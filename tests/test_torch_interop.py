@@ -269,3 +269,49 @@ def test_boundary_scan_covers_the_tail():
     r = subprocess.run([sys.executable, "-S", "-c", f"import sys; sys.path[:0] = {sys.path!r}\n" + code],
                        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+SUBPACKAGES = ("", "control", "engine", "mapping", "models", "ops", "sim", "utils", "solver", "parallel", "runtime",
+               "safety")
+
+
+def _init_names(init: Path) -> set[str]:
+    """The names an ``__init__.py`` binds by ``from ... import``."""
+    return {a.asname or a.name for node in ast.parse(init.read_text()).body if isinstance(node, ast.ImportFrom)
+            for a in node.names}
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES, ids=lambda s: s or "package")
+def test_package_exports_the_jax_packages_names(sub):
+    jax_names = _init_names(REPO / "avoid_mpc_tpu" / sub / "__init__.py")
+    port_names = _init_names(PACKAGE / sub / "__init__.py")
+    assert jax_names and jax_names <= port_names, sorted(jax_names - port_names)
+    mod = __import__("avoid_mpc_torch" + (f".{sub}" if sub else ""), fromlist=["_"])
+    assert all(hasattr(mod, n) for n in jax_names)
+
+
+def test_importing_the_subpackages_builds_nothing():
+    """The re-exports keep the package lazy: importing the package and each
+    subpackage loads no JAX, PyYAML or matplotlib and builds no kernel and
+    no host runtime."""
+    code = (
+        "import sys, importlib\n"
+        f"for sub in {SUBPACKAGES!r}:\n"
+        "    importlib.import_module('avoid_mpc_torch' + ('.' + sub if sub else ''))\n"
+        "import avoid_mpc_torch as amt, avoid_mpc_torch.runtime.native as n, avoid_mpc_torch.cuda_build as c\n"
+        "assert callable(amt.load_config) and amt.TaskConfig and amt.PerceptionConfig\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'avoid_mpc_tpu', 'yaml', 'matplotlib'))\n"
+        "assert not bad, bad\n"
+        "assert n._lib is None and not c._loaded\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    r = subprocess.run([sys.executable, "-S", "-c", f"import sys; sys.path[:0] = {sys.path!r}\n" + code],
+                       cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_boundary_scan_covers_the_probes():
+    scanned = {str(p.relative_to(PACKAGE)) for p in PACKAGE.rglob("*.py")}
+    for mod in ("trace_report", "roofline", "probe_fused_split", "probe_knn_paths", "probe_compaction",
+                "diagnose_fused_outlier"):
+        assert f"tools/{mod}.py" in scanned and (REPO / "avoid_mpc_tpu" / "tools" / f"{mod}.py").exists(), mod

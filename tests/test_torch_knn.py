@@ -14,11 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from avoid_mpc_torch.ops import knn as tknn
 from avoid_mpc_torch.ops.knn_cuda import knn_topk
 
 # the module (the JAX package's ops/__init__ re-exports the function as `knn`)
 jknn = importlib.import_module("avoid_mpc_tpu.ops.knn")
+tknn = importlib.import_module("avoid_mpc_torch.ops.knn")  # the package exports the function knn
 
 
 def _case(rng, b, q, p, k, mask_frac=0.1):

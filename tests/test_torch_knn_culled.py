@@ -20,10 +20,10 @@ import numpy as np
 import pytest
 import torch
 
-from avoid_mpc_torch.ops import knn as tknn
 from avoid_mpc_torch.ops import knn_cuda
 
 jknn = importlib.import_module("avoid_mpc_tpu.ops.knn")
+tknn = importlib.import_module("avoid_mpc_torch.ops.knn")  # the package exports the function knn
 RTOL = 1e-12
 
 

@@ -6,6 +6,7 @@ on stand-ins for CUDA tensors (this machine has no GPU); the dispatchers'
 wiring by counting which path each call took; a float64 call on the CPU
 against the JAX package's float64 result."""
 
+import importlib
 from types import SimpleNamespace
 
 import jax.numpy as jnp
@@ -15,9 +16,10 @@ import torch
 
 from avoid_mpc_tpu.ops.knn import knn as jax_knn
 from avoid_mpc_torch import device
-from avoid_mpc_torch.ops import knn as tknn
 from avoid_mpc_torch.ops import knn_cuda
 from avoid_mpc_torch.solver import ilqr, sqp_cuda
+
+tknn = importlib.import_module("avoid_mpc_torch.ops.knn")  # the package exports the function knn
 
 
 def reference_rule(on_accelerator: bool, dtype) -> bool:
