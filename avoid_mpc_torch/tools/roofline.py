@@ -21,8 +21,18 @@ counted analytically, from the port's own loops:
 Each count's least time is the larger of its bytes over the HBM rate and
 its operations over the f32 rate (:func:`bound_ms`); the peaks are the H100
 SXM data sheet's (:data:`HBM_BYTES_PER_S`, :data:`F32_OPS_PER_S`,
-:data:`F32_INSTR_PER_S`), defined here once for the port.  The tool reads
-no ``VPU_OPS.json``: that file holds the TPU's measured issue rates.
+:data:`F32_INSTR_PER_S`), defined here once for the port.
+
+``issue_floor`` is the counterpart of the JAX tool's measured-issue floor:
+the SQP tally charged as FMAs (``pallas_vpu_flops / 2 / 32`` warp
+instructions, a warp's 32 lanes in place of the vreg's 1,024) at the issue
+rate this card sustains, measured in the same process at start-up by
+``tools/op_microbench`` (``fma`` / ``ilp8x4`` at 16 warps an SM on every
+SM, the solver kernels' occupancy; :func:`issue_floor`), with the SM clock
+from that run, beside the step's p50 and the SQP kernel's own time, and
+every op's ``ilp8x4`` cost relative to the FMA's.  It reads no
+``VPU_OPS.json`` (a TPU's numbers); on the CPU it is None, as the JAX tool
+omits it without a measurement.
 
 One JSON line carries the JAX tool's keys (``pallas_io_bytes`` is the two
 kernels' bytes, ``pallas_vpu_flops`` the SQP kernel's operations at the
@@ -52,6 +62,7 @@ F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 # x 128 lanes x 1.98 GHz, half of the FMA-counting F32_OPS_PER_S.
 F32_INSTR_PER_S = 33.5e12
 KNN_INSTR_PER_PAIR = 8
+WARP_LANES = 32  # a warp instruction's lanes: the vreg's 8 x 128 in the JAX tool
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
@@ -81,6 +92,26 @@ def sqp_bound(b: int, n: int, n_obs: int, n_alphas: int, bq_iters: int, iteratio
     return {"operations": ops, "bytes": n_bytes, "bound_ms": ms, "bound_by": by}
 
 
+def issue_floor(vpu_flops: float, rate: float, clock_hz: float, n_sm: int, p50_ms: float,
+                sqp_ms: float | None = None, relative: dict | None = None) -> dict:
+    """The measured-issue floor of ``vpu_flops`` (FMA = 2): its warp
+    instructions at ``rate`` warp instructions per SM cycle on ``n_sm`` SMs
+    at ``clock_hz``, and the rates the step's ``p50_ms`` and the SQP
+    kernel's ``sqp_ms`` come to (the JAX tool's ``issue_floor``, per SM)."""
+    warp_instr = vpu_flops / 2.0 / WARP_LANES
+    t_issue_ms = warp_instr / (n_sm * rate * clock_hz) * 1e3
+
+    def effective(ms):
+        return None if ms is None else warp_instr / (ms * 1e-3 * clock_hz * n_sm)
+
+    return {"measured_fma_warp_instr_per_sm_cycle": rate, "sm_clock_hz_measured": clock_hz, "n_sm": n_sm,
+            "warp_instr": warp_instr, "t_issue_measured_ms": t_issue_ms,
+            "effective_warp_instr_per_sm_cycle_at_measured_p50": effective(p50_ms),
+            "sqp_solve": {"kernel_ms": sqp_ms, "effective_warp_instr_per_sm_cycle": effective(sqp_ms),
+                          "over_issue_floor": None if sqp_ms is None else sqp_ms / t_issue_ms},
+            "ilp8x4_relative_to_fma": relative}
+
+
 def _kernel_ms(fn, dev) -> dict | None:
     from avoid_mpc_torch.utils.profiling import device_time
 
@@ -99,6 +130,11 @@ def run(dev, batch: int = 4096, n_pts: int = 1024, iters: int = 10, chain: int =
     from avoid_mpc_torch.tools.profile_solver import N_HORIZON, build
     from avoid_mpc_torch.utils.profiling import per_call_ms, timed
 
+    rates = None
+    if dev.type == "cuda":  # the card's issue rate at the solver kernels' occupancy, first
+        from avoid_mpc_torch.tools import op_microbench
+
+        rates = op_microbench.measure(op_microbench.FULL_ITERS, dev, 16, modes=("ilp8x4",))
     x0, ref, target, pts, mask, us, sp, hp = build(dev, batch, n_pts)
     k_nn = step.FLAGSHIP.nearest_point_count
     hp_fixed = hp._replace(iters=iters, grad_tol=0.0)
@@ -161,7 +197,14 @@ def run(dev, batch: int = 4096, n_pts: int = 1024, iters: int = 10, chain: int =
                  "bound": "operations" if t_ops >= t_mem else "bytes"},
         "profile_complete": None if fixed_t is None else fixed_t["complete"],
         "device": torch.cuda.get_device_name(dev) if on_card else "cpu",
+        "issue_floor": None,
     }
+    if rates is not None:
+        from avoid_mpc_torch.tools.op_microbench import relative_to_fma
+
+        fma = rates["fma"]["ilp8x4"]
+        rec["issue_floor"] = issue_floor(sqp["operations"], fma["rate"], fma["sm_clock_hz"], fma["sms"], p50, sqp_ms,
+                                         relative_to_fma(rates, 16))
     return rec
 
 

@@ -60,8 +60,16 @@ ticks, once with the fused solve and once with the per-phase solve
    counts knn 1, sweep 11, line search 10, SQP 0 per tick, and the tick's
    breakdown (kernels and the torch linearization timed apart, the device's
    busy time from ``torch.profiler``);
-10. the op microbench: kernel vs plain after 64 iterations for every op and
-    mode (1e-5 relative), then cycles per warp instruction per op and mode;
+10. the op microbench at both occupancies: kernel vs plain after 64
+    iterations for every op, mode and occupancy, on every replica (1e-5
+    relative); cycles per warp instruction at 1 warp per SM; at 16 warps
+    per SM (the SQP kernel's 64-thread blocks, 8 an SM, on every SM) each
+    SM's rate in warp instructions per SM cycle (every SM 16 warps, every
+    rate in (0, 4], the SM clock between 0.5 and 2.1 GHz); the ``fma``
+    ``ilp8x4`` launch at 16 warps per SM timed at its table's n_iter (over
+    1 ms, within 2x its operations bound, its output against the plain
+    twin's at 1e-5 relative on every replica), and the one-warp ``exp``
+    launch beside it;
 11. the ``forest_10k`` engine tick (``engine/receding.receding_step``,
     B=1024, N=30, 3 outer iterations, F=4 x P=2560 forest maps): 3 gate
     ticks held against the port's CPU tick (first 64 scenarios, each tick
@@ -160,8 +168,11 @@ ticks, once with the fused solve and once with the per-phase solve
     of the kernels line's times x launches; (b) ``tools/roofline``: the
     step at a fixed 10 iterations (grad_tol 0), its SQP bound 0.2067 ms to
     4 digits and its early-exit bound equal to phase 3's from the same
-    updates; (c) ``tools/probe_fused_split``: knn_only, solve_only and
-    full_step over 16 chained ticks, full_step's first and last tick equal
+    updates; its ``issue_floor``: the measured rate in (0, 4] warp
+    instructions per SM cycle, the SM clock between 0.5 and 2.1 GHz, and
+    0 < ``t_issue_measured_ms`` <= the SQP kernel's fixed-budget time;
+    (c) ``tools/probe_fused_split``: knn_only, solve_only and full_step
+    over 16 chained ticks, full_step's first and last tick equal
     to the fused step's chain, knn_only + solve_only busy within 15% of
     full_step's; (d)
     ``tools/probe_knn_paths`` at (1024, 30, 10240) and (4096, 20, 1024):
@@ -189,6 +200,7 @@ from __future__ import annotations
 import json
 import math
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -196,8 +208,11 @@ from pathlib import Path
 
 B, N_HORIZON, N_PTS, K_NN = 4096, 20, 1024, 3
 TICKS, WARMUP_TICKS = 10, 3
-MB_CHECK_ITERS, MB_ITERS = 64, 1 << 20  # microbench: the check, and the cycle counts (a few seconds)
-MB_TIMED = ("exp", "ilp8x4", 256)  # the microbench launch timed for the kernels line
+MB_CHECK_ITERS, MB_ITERS = 64, 1 << 20  # microbench: the check, and the cycle counts at 1 warp per SM
+MB_TIMED = ("fma", "ilp8x4")  # the launch the kernels line times: 16 warps per SM, op_microbench.FULL_ITERS
+MB_TIMED_ONE_WARP = ("exp", "ilp8x4", 256)  # the one-warp latency launch, PERF.md row 5's earlier time
+MB_RATIO_MAX = 2.0  # the timed launch within 2x its operations bound
+SM_CLOCK_HZ = (0.5e9, 2.1e9)  # a measured SM clock outside this is a timing fault
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
@@ -490,11 +505,12 @@ def sqp_edge_shapes(dev, seed: int = 1) -> float:
     return err
 
 
-def knn_edge_shapes(dev) -> tuple[float, dict]:
+def knn_edge_shapes(dev) -> tuple[float, dict, dict]:
     """Phase 2's edge shapes: ``knn_topk`` identical to ``knn_plain`` at
     every ``tools/knn_shapes.EDGE_CASES`` shape (one line each), then the
-    kernel's time at the dedupe and rescue shapes.  Returns the max abs
-    difference and the times."""
+    kernel's time and bound at the dedupe and rescue shapes and at the
+    engine's shapes.  Returns the max abs difference, the times and the
+    bounds ((ms, "bytes" or "operations") by shape)."""
     from avoid_mpc_torch.ops import knn_cuda
     from avoid_mpc_torch.ops.knn import knn_plain
     from avoid_mpc_torch.tools import knn_shapes
@@ -508,13 +524,16 @@ def knn_edge_shapes(dev) -> tuple[float, dict]:
         print(f"phase 2 knn {name} (B, Q, P, k = {case[:4]}, {case[4]}): identical={same}, launch {geo.grid} blocks x "
               f"{geo.threads} threads, {geo.slices} slices, {geo.splits} ranges of {geo.range_points}",
               flush=True)
-    times = {}
+    times, bounds = {}, {}
     for name in ("dedupe", "rescue"):
         qs, pts, mask = knn_shapes.make_inputs(knn_shapes.EDGE_CASES[name], dev)
-        k = knn_shapes.EDGE_CASES[name][3]
+        b, q, p, k = knn_shapes.EDGE_CASES[name][:4]
         times[name] = kernel_ms(lambda: knn_cuda.knn_topk(qs, pts, mask, k), "knn_topk", reps=20)
-    print(f"phase 2 knn times (device time, profiler): dedupe {times['dedupe']:.4f} ms, rescue "
-          f"{times['rescue']:.4f} ms", flush=True)
+        n_ops, n_bytes = knn_counts(b, q, p, k, int(mask.sum()))
+        bounds[name] = bound_ms(n_bytes, n_ops, F32_INSTR_PER_S)
+    print("phase 2 knn times (device time, profiler): " + ", ".join(
+        f"{n} {times[n]:.4f} ms against its bound {bounds[n][0]:.4f} ms ({bounds[n][1]}, ratio "
+        f"{times[n] / bounds[n][0]:.1f}x)" for n in ("dedupe", "rescue")), flush=True)
     # the engine tick's and the rolling map's shapes: identity, time and bound
     for name, case in knn_shapes.ENGINE_SHAPES.items():
         same, e = knn_shapes.gate(knn_cuda.knn_topk, knn_plain, case, dev)
@@ -527,12 +546,110 @@ def knn_edge_shapes(dev) -> tuple[float, dict]:
         bound, by = bound_ms(n_bytes, n_ops, F32_INSTR_PER_S)
         geo = knn_cuda.launch_geometry(b, q, p, k)
         if not case[4].startswith("lattice"):
-            times[name] = ms
+            times[name], bounds[name] = ms, (bound, by)
         print(f"phase 2 knn engine shape {name} (B, Q, P, k = {case[:4]}, {case[4]}): identical={same} max abs err "
               f"{e}, kernel {ms:.4f} ms (device time, profiler), bound {bound:.4f} ms ({by}), ratio {ms / bound:.1f}x, "
               f"launch {geo.grid} blocks x {geo.threads} threads, {geo.slices} slices, {geo.splits} ranges of "
               f"{geo.range_points}, {geo.shared_bytes} B shared", flush=True)
-    return err, times
+    return err, times, bounds
+
+
+def microbench_phase(dev, smi: str) -> dict:
+    """Phase 10: ``op_chain`` against its plain twin at every op, mode and
+    occupancy on every replica, the two occupancies' tables with their
+    launches, the timed 16-warps launch and the one-warp launch (gates in
+    the module docstring).  Returns what the kernels line takes."""
+    import torch
+
+    from avoid_mpc_torch.tools import op_microbench
+    from avoid_mpc_torch.tools.op_microbench import op_chain, op_chain_plain
+
+    full = op_microbench.card_geometry(dev)
+    max_issue = op_microbench.ISSUE_SLOTS_PER_SM_CYCLE
+    mb_err = 0.0
+    for occ, warps in op_microbench.OCCUPANCIES.items():
+        for op in op_microbench.OPS:
+            for mode, (_, unroll) in op_microbench.MODES.items():
+                x_mb = op_microbench.chain_input(mode, dev, None if warps == 1 else full.replicas)
+                got, _ = op_chain(x_mb, op, MB_CHECK_ITERS, unroll)
+                want = op_chain_plain(x_mb, op, MB_CHECK_ITERS, unroll)
+                torch.cuda.synchronize()
+                rel = ((got - want).abs() / want.abs()).amax(dim=(1, 2))  # per replica
+                mb_err = max(mb_err, float((got - want).abs().max()))
+                check(got.shape == want.shape and float(rel.max()) <= 1e-5,
+                      f"op_chain {op} {mode} {occ}: kernel vs plain rel err {float(rel.max()):.3e} > 1e-5 (worst "
+                      f"replica {int(rel.argmax())} of {rel.numel()})")
+    print(f"phase 10 microbench kernel vs plain after {MB_CHECK_ITERS} iterations, {len(op_microbench.OPS)} ops x "
+          f"{len(op_microbench.MODES)} modes x {len(op_microbench.OCCUPANCIES)} occupancies (1 warp per SM: one "
+          f"tile; 16 warps per SM: {full.replicas} replicas, each held on its own): max abs err {mb_err:.3e}",
+          flush=True)
+    cells = len(op_microbench.OPS) * len(op_microbench.MODES)
+    mb_launches, mb_tables = {}, {}
+    for occ, warps in op_microbench.OCCUPANCIES.items():
+        op_chain.launches = 0
+        mb_tables[occ] = op_microbench.measure(MB_ITERS if warps == 1 else op_microbench.FULL_ITERS, dev, warps)
+        mb_launches[occ] = op_chain.launches
+    check(mb_launches == {"1_warp_per_sm": cells, "16_warps_per_sm": cells + 1},  # + the untimed first launch
+          f"op_chain launches {mb_launches}")
+    print("phase 10 microbench at 1 warp per SM (32 one-warp blocks, one warp on each of 32 SMs), cycles per warp "
+          f"instruction, median over the warps, n_iter {MB_ITERS}: " + json.dumps(mb_tables["1_warp_per_sm"]),
+          flush=True)
+    t16 = mb_tables["16_warps_per_sm"]
+    print(f"phase 10 microbench at 16 warps per SM ({full.grid} blocks x {full.threads} threads, {full.replicas} "
+          f"replicas, n_iter {op_microbench.FULL_ITERS}), warp instructions per SM cycle, median [min, max] over the SMs: "
+          + "; ".join(f"{op} " + ", ".join(f"{mode} {r['rate']:.4f} [{r['rate_min']:.4f}, {r['rate_max']:.4f}]"
+                                          for mode, r in row.items()) for op, row in t16.items()), flush=True)
+    clocks = [r["sm_clock_hz"] for row in t16.values() for r in row.values()]
+    fma16 = t16["fma"]["ilp8x4"]
+    print(f"phase 10 microbench at 16 warps per SM: warps per SM (count: SMs) "
+          f"{sorted({json.dumps(r['warps_per_sm']) for row in t16.values() for r in row.values()})}; SM clock (the "
+          f"longest SM span over the CUDA-event time) median {statistics.median(clocks) / 1e9:.4f} GHz, range "
+          f"[{min(clocks) / 1e9:.4f}, {max(clocks) / 1e9:.4f}]; fma ilp8x4 {fma16['rate']:.4f} warp FFMAs per SM "
+          f"cycle at {fma16['sm_clock_hz'] / 1e9:.4f} GHz, {fma16['event_ms']:.4f} ms, "
+          f"{2 * 32 * fma16['warp_instr_per_s'] / 1e12:.2f} TFLOP/s; ilp8x4 relative to fma: "
+          + json.dumps({k: round(v, 4) for k, v in op_microbench.relative_to_fma(t16, 16).items()}), flush=True)
+    for op, row in t16.items():
+        for mode, r in row.items():
+            check(r["sms"] == full.sms and r["warps_per_sm"] == {16: full.sms},
+                  f"op_chain {op} {mode}: warps per SM {r['warps_per_sm']} on {r['sms']} SMs, want 16 on {full.sms}")
+            check(0 < r["rate_min"] and r["rate_max"] <= max_issue,
+                  f"op_chain {op} {mode}: SM rates [{r['rate_min']}, {r['rate_max']}] outside (0, {max_issue}]")
+            check(SM_CLOCK_HZ[0] <= r["sm_clock_hz"] <= SM_CLOCK_HZ[1],
+                  f"op_chain {op} {mode}: SM clock {r['sm_clock_hz']:.4e} Hz outside {SM_CLOCK_HZ}")
+    mb_op, mb_mode = MB_TIMED
+    mb_n, mb_unroll = op_microbench.FULL_ITERS, op_microbench.MODES[mb_mode][1]
+    mb_rate = t16[mb_op][mb_mode]  # the same launch, in the table above
+    x_mb = op_microbench.chain_input(mb_mode, dev, full.replicas)
+    outs = {}
+    mb_ms = kernel_ms(lambda: outs.update(kernel=op_chain(x_mb, mb_op, mb_n, mb_unroll)[0]), "op_chain", reps=20)
+    mb_plain_ms = cuda_ms(lambda: outs.update(plain=op_chain_plain(x_mb, mb_op, mb_n, mb_unroll)), reps=1, warmup=0)
+    mb_rel = ((outs["kernel"] - outs["plain"]).abs() / outs["plain"].abs()).amax(dim=(1, 2))  # per replica
+    mb_err = max(mb_err, float((outs["kernel"] - outs["plain"]).abs().max()))
+    check(float(mb_rel.max()) <= 1e-5, f"op_chain timed launch: kernel vs plain rel err {float(mb_rel.max()):.3e} > "
+                                       f"1e-5 (worst replica {int(mb_rel.argmax())} of {mb_rel.numel()})")
+    mb_flops = op_microbench.flop_count(mb_op, mb_mode, mb_n, full.replicas)
+    mb_bound, mb_by = bound_ms(op_microbench.byte_count(mb_mode, full.replicas), mb_flops)
+    check(mb_ms >= 1.0, f"op_chain timed launch {mb_ms:.4f} ms, want >= 1 ms")
+    check(mb_ms / mb_bound <= MB_RATIO_MAX, f"op_chain timed launch {mb_ms / mb_bound:.4f}x its bound > {MB_RATIO_MAX}")
+    print(f"phase 10 microbench launch {mb_op} {mb_mode} n_iter={mb_n} at 16 warps per SM ({full.grid} blocks x "
+          f"{full.threads} threads on {full.sms} SMs): kernel {mb_ms:.4f} ms (device time, profiler), plain "
+          f"{mb_plain_ms:.1f} ms, kernel vs plain rel err {float(mb_rel.max()):.3e} on every replica (gate <= 1e-5), "
+          f"bound {mb_bound:.4f} ms ({mb_by}; {mb_flops / 1e9:.3f} G operations), ratio {mb_ms / mb_bound:.4f}x "
+          f"(gate <= {MB_RATIO_MAX}), {mb_flops / mb_ms / 1e9:.2f} TFLOP/s; {mb_rate['rate']:.4f} warp FFMAs per SM "
+          f"cycle [{mb_rate['rate_min']:.4f}, {mb_rate['rate_max']:.4f}] (the table's launch), warps per SM "
+          f"{mb_rate['warps_per_sm']}; {smi}", flush=True)
+    mb1_op, mb1_mode, mb1_n = MB_TIMED_ONE_WARP
+    x_mb1 = op_microbench.chain_input(mb1_mode, dev)
+    mb1_unroll = op_microbench.MODES[mb1_mode][1]
+    mb1_ms = kernel_ms(lambda: op_chain(x_mb1, mb1_op, mb1_n, mb1_unroll), "op_chain", reps=20)
+    mb1_plain_ms = cuda_ms(lambda: op_chain_plain(x_mb1, mb1_op, mb1_n, mb1_unroll), reps=1)
+    mb1_bound, mb1_by = bound_ms(op_microbench.byte_count(mb1_mode), op_microbench.flop_count(mb1_op, mb1_mode, mb1_n))
+    print(f"phase 10 microbench launch {mb1_op} {mb1_mode} n_iter={mb1_n} at 1 warp per SM (a latency probe: one "
+          f"warp scheduler on each of 32 SMs): kernel {mb1_ms:.4f} ms, plain {mb1_plain_ms:.1f} ms, bound "
+          f"{mb1_bound:.6f} ms ({mb1_by}), ratio {mb1_ms / mb1_bound:.1f}x", flush=True)
+    return {"launches": mb_launches, "err": mb_err, "ms": mb_ms, "plain_ms": mb_plain_ms, "bound_ms": mb_bound,
+            "bound_by": mb_by, "rate": mb_rate["rate"], "sms": full.sms, "n_iter": mb_n, "one_warp": {
+                "ms": mb1_ms, "plain_ms": mb1_plain_ms, "bound_ms": mb1_bound, "bound_by": mb1_by}}
 
 
 FOREST_B = 1024  # the forest_10k cell's batch
@@ -630,6 +747,27 @@ def sqp_tick_bound(label: str, tick, sqp_ms: float) -> dict:
           f"scenario per solve; {n_bytes / 1e6:.3f} MB), kernel {sqp_ms:.4f} ms, ratio {sqp_ms / bound:.1f}x",
           flush=True)
     return {"bound_ms": bound, "bound_by": by, "ms": sqp_ms, "solves": len(log)}
+
+
+def knn_tick_bound(label: str, tick, knn_ms: float) -> dict:
+    """The k-NN kernel's bound for the launches of one call of ``tick``:
+    the sum of each launch's own bound from its shape and valid points
+    (``knn_cuda.record_calls``), beside ``knn_ms``, the kernel's device
+    time for those launches."""
+    from avoid_mpc_torch.ops.knn_cuda import record_calls
+
+    with record_calls() as log:
+        tick()
+    each = [bound_ms(n_bytes, n_ops, F32_INSTR_PER_S)
+            for n_ops, n_bytes in (knn_counts(b, q, p, k, int(n)) for b, q, p, k, n in log)]
+    bound = sum(ms for ms, _ in each)
+    by_bytes = sum(by == "bytes" for _, by in each)
+    shapes = sorted({f"({b}, {q}, {p}, {k})" for b, q, p, k, _ in log})
+    print(f"{label}: knn bound for the {len(log)} launches of one tick ((B, Q, P, k) {', '.join(shapes)}) "
+          f"{bound:.4f} ms (each launch's own bound: {by_bytes} by bytes, {len(each) - by_bytes} by operations), "
+          f"kernel {knn_ms:.4f} ms, ratio {knn_ms / bound:.1f}x", flush=True)
+    return {"bound_ms": bound, "bound_by": "bytes" if 2 * by_bytes > len(each) else "operations", "ms": knn_ms,
+            "launches": len(log)}
 
 
 def engine_forest(dev) -> dict:
@@ -1355,7 +1493,9 @@ def scale_out(dev, smi: str) -> dict:
               f"{parts['knn_topk_kernel']:.4f} + sqp {parts['sqp_solve_kernel']:.4f} + other "
               f"{busy - parts['knn_topk_kernel'] - parts['sqp_solve_kernel']:.3f} (profiler, 3-step mean); idle share "
               f"{1.0 - busy / p50:.3f}; {smi}", flush=True)
-    return {"launches": launches, "shard_ms": shard_ms, "shard_plain_ms": shard_plain_ms, "shard_bound": shard_bound,
+    sharded_bound = sqp_tick_bound("phase 17 sharded step", steps_fn["sharded"],
+                                   times["sharded"]["parts"]["sqp_solve_kernel"])
+    return {"launches": launches, "sqp_bound": sharded_bound, "shard_ms": shard_ms, "shard_plain_ms": shard_plain_ms, "shard_bound": shard_bound,
             "shard_by": shard_by, "shard_err": shard_err, "shard_lib_ms": cdist_ms + topk_ms, "times": times,
             "max_du": r["max_du"], "sqp_shard_b": b // n_s}
 
@@ -1566,7 +1706,9 @@ def ingest_chain(dev) -> dict:
           f"torch ops {busy - sum(parts.values()):.3f}; against the reference's 33 ms loop budget: busy "
           f"{busy / 33.0:.3f} of it, wire + ring + device-side tick {t['wire + ring'] + t['tick']:.3f} ms "
           f"({'met' if t['wire + ring'] + t['tick'] <= 33.0 else 'missed'})", flush=True)
-    return {"ms": t, "launches": launches, "busy": busy, "parts": parts}
+    return {"ms": t, "launches": launches, "busy": busy, "parts": parts,
+            "sqp_bound": sqp_tick_bound("phase 18c ingest", tick, parts["sqp_solve_kernel"]),
+            "knn_bound": knn_tick_bound("phase 18c ingest", tick, parts["knn_topk_kernel"])}
 
 
 def sensors_gate(dev) -> None:
@@ -2016,7 +2158,8 @@ def probes_phase(dev, flagship, refs: dict) -> dict:
     process (records equal the launches, totals within 10% of the kernels
     line's times); (b)
     ``roofline`` (its early-exit bound equals phase 3's from the same
-    updates, its fixed-budget bound FIXED_BUDGET_BOUND_MS); (c)
+    updates, its fixed-budget bound FIXED_BUDGET_BOUND_MS, its issue_floor
+    in the gates of the module docstring); (c)
     ``probe_fused_split`` (full_step's controls after the first and the
     last tick of its timed chain equal the fused step's chained the same
     way, knn_only + solve_only busy within 15% of full_step's); (d)
@@ -2032,8 +2175,9 @@ def probes_phase(dev, flagship, refs: dict) -> dict:
     from avoid_mpc_torch import step
     from avoid_mpc_torch.ops.knn import knn_plain
     from avoid_mpc_torch.runtime import native
-    from avoid_mpc_torch.tools import (diagnose_fused_outlier, probe_compaction, probe_fused_split,
+    from avoid_mpc_torch.tools import (diagnose_fused_outlier, op_microbench, probe_compaction, probe_fused_split,
                                        probe_knn_paths, probe_profiler, roofline)
+    from avoid_mpc_torch.tools.op_microbench import op_chain
 
     x0, ref, target, pts, mask, us0, sp, hp = flagship
     out_dir = native.BUILD_DIR.parent / "tools"
@@ -2086,8 +2230,10 @@ def probes_phase(dev, flagship, refs: dict) -> dict:
     # 20b roofline
     t0 = time.perf_counter()
     zero_launch_counts()
+    op_chain.launches = 0
     roof = roofline.main(["--device", "cuda", "--batch", str(B), "--points", str(N_PTS)])
     launches = launch_counts()
+    issue_launches = op_chain.launches
     sqp_r, knn_r, early = roof["kernels"]["sqp_solve"], roof["kernels"]["knn_topk"], roof["early_exit"]
     check(early["iterations"] == refs["cold_iterations"], "20b roofline's early-exit updates differ from phase 3's")
     check(early["bound_ms"] == refs["cold_bound"],
@@ -2105,6 +2251,28 @@ def probes_phase(dev, flagship, refs: dict) -> dict:
           f"{early['iterations_mean']:.3f}, bound {early['bound_ms']:.4f} ms (phase 3: {refs['cold_bound']:.4f}), "
           f"kernel {f4(early['kernel_ms'])} ms; profiles complete {roof['profile_complete']} / "
           f"{early['profile_complete']}; launches {launches}", flush=True)
+    issue = roof["issue_floor"] or {}
+    rate, clock, t_issue = (issue.get(k) for k in ("measured_fma_warp_instr_per_sm_cycle", "sm_clock_hz_measured",
+                                                   "t_issue_measured_ms"))
+    max_issue = op_microbench.ISSUE_SLOTS_PER_SM_CYCLE
+    check(rate is not None and 0 < rate <= max_issue,
+          f"20b issue_floor rate {rate} warp instructions per SM cycle outside (0, {max_issue}]")
+    check(clock is not None and SM_CLOCK_HZ[0] <= clock <= SM_CLOCK_HZ[1],
+          f"20b issue_floor SM clock {clock} Hz outside {SM_CLOCK_HZ}")
+    check(t_issue is not None and sqp_r["kernel_ms"] is not None and 0 < t_issue <= sqp_r["kernel_ms"],
+          f"20b issue_floor t_issue_measured_ms {t_issue} outside (0, the SQP kernel's {sqp_r['kernel_ms']} ms]")
+    check(issue_launches == len(op_microbench.OPS) + 1, f"20b roofline's op_chain launches {issue_launches}")
+    if issue:
+        sqp_i = issue["sqp_solve"]
+        print(f"phase 20b roofline issue_floor: {issue['warp_instr'] / 1e6:.3f} M warp instructions (the SQP tally's "
+              f"{sqp_r['operations'] / 1e9:.3f} G operations as FMAs over 32 lanes) at {rate:.4f} warp FFMAs per SM "
+              f"cycle (fma ilp8x4, 16 warps per SM, measured in this process) on {issue['n_sm']} SMs at "
+              f"{clock / 1e9:.4f} GHz: t_issue_measured_ms {t_issue:.4f} (the 67e12 bound {sqp_r['bound_ms']:.4f}); "
+              f"the SQP kernel {f4(sqp_i['kernel_ms'])} ms = {f4(sqp_i['over_issue_floor'])}x the floor, "
+              f"{f4(sqp_i['effective_warp_instr_per_sm_cycle'])} warp instructions per SM cycle; the step's p50 "
+              f"{roof['measured_p50_step_ms']:.4f} ms, "
+              f"{issue['effective_warp_instr_per_sm_cycle_at_measured_p50']:.4f}; ilp8x4 relative to fma "
+              + json.dumps({k: round(v, 4) for k, v in issue["ilp8x4_relative_to_fma"].items()}), flush=True)
     res["roofline"] = roof
 
     # 20c probe_fused_split
@@ -2237,8 +2405,7 @@ def main() -> int:
     from avoid_mpc_torch.solver.forward_cuda import line_search
     from avoid_mpc_torch.solver.ilqr import MPCProblem, hover_warm_start, solve_plain
     from avoid_mpc_torch.solver.sqp_cuda import byte_count, flop_count, sqp_solve
-    from avoid_mpc_torch.tools import op_microbench, verify_fused
-    from avoid_mpc_torch.tools.op_microbench import op_chain, op_chain_plain
+    from avoid_mpc_torch.tools import verify_fused
 
     dev = torch.device("cuda", 0)
 
@@ -2322,7 +2489,7 @@ def main() -> int:
           f"{bound_ms(knn_bytes, 0)[0]:.4f} ms for {knn_bytes / 1e6:.1f} MB, operations "
           f"{bound_ms(0, knn_ops, F32_INSTR_PER_S)[0]:.4f} ms for {knn_ops / 1e9:.3f} G non-FMA instructions)",
           flush=True)
-    edge_knn_err, knn_edge_ms = knn_edge_shapes(dev)
+    edge_knn_err, knn_edge_ms, knn_edge_bounds = knn_edge_shapes(dev)
     knn_err = max(knn_err, edge_knn_err)
 
     # ---- 3. SQP kernel vs plain on the flagship batch ----
@@ -2582,33 +2749,8 @@ def main() -> int:
           f"({bw_by}), plain {bw_plain_ms:.3f} ms; line search bound {ls_bound:.4f} ms ({ls_by}), plain "
           f"{ls_plain_ms:.3f} ms", flush=True)
 
-    # ---- 10. the op microbench ----
-    mb_err = 0.0
-    for op in op_microbench.OPS:
-        for mode, (_, unroll) in op_microbench.MODES.items():
-            x_mb = op_microbench.chain_input(mode, dev)
-            got, _ = op_chain(x_mb, op, MB_CHECK_ITERS, unroll)
-            want = op_chain_plain(x_mb, op, MB_CHECK_ITERS, unroll)
-            torch.cuda.synchronize()
-            rel = float(((got - want).abs() / want.abs()).max())
-            mb_err = max(mb_err, float((got - want).abs().max()))
-            check(rel <= 1e-5, f"op_chain {op} {mode}: kernel vs plain rel err {rel:.3e} > 1e-5")
-    print(f"phase 10 microbench kernel vs plain after {MB_CHECK_ITERS} iterations, {len(op_microbench.OPS)} ops x "
-          f"{len(op_microbench.MODES)} modes: max abs err {mb_err:.3e}", flush=True)
-    op_chain.launches = 0
-    cycles = op_microbench.measure(MB_ITERS, dev)
-    mb_launches = op_chain.launches
-    check(mb_launches == len(op_microbench.OPS) * len(op_microbench.MODES), f"op_chain launches {mb_launches}")
-    print("phase 10 microbench cycles per warp instruction (one warp per SM, n_iter "
-          f"{MB_ITERS}): " + json.dumps(cycles), flush=True)
-    mb_op, mb_mode, mb_n = MB_TIMED
-    x_mb = op_microbench.chain_input(mb_mode, dev)
-    mb_unroll = op_microbench.MODES[mb_mode][1]
-    mb_ms = kernel_ms(lambda: op_chain(x_mb, mb_op, mb_n, mb_unroll), "op_chain", reps=20)
-    mb_plain_ms = cuda_ms(lambda: op_chain_plain(x_mb, mb_op, mb_n, mb_unroll), reps=1)
-    mb_bound, mb_by = bound_ms(op_microbench.byte_count(mb_mode), op_microbench.flop_count(mb_op, mb_mode, mb_n))
-    print(f"phase 10 microbench launch {mb_op} {mb_mode} n_iter={mb_n}: kernel {mb_ms:.4f} ms, plain {mb_plain_ms:.1f} "
-          f"ms, bound {mb_bound:.6f} ms ({mb_by}; 32 one-warp blocks use 32 of the 132 SMs by design)", flush=True)
+    # ---- 10. the op microbench, at 1 warp per SM and at 16 ----
+    mb = microbench_phase(dev, smi)
 
     # ---- 11. the forest_10k engine tick ----
     forest = engine_forest(dev)
@@ -2660,9 +2802,11 @@ def main() -> int:
          "library_call": "torch.cdist(donot_use_mm_for_euclid_dist)+torch.topk, two calls, mask not applied",
          "library_parts_ms": {"cdist": knn_cdist_ms, "topk": knn_topk_lib_ms},
          "ms_at": {**knn_edge_ms, "scale-out point shard (B=1, Q=4096, P=4096, k=3)": scale["shard_ms"]},
-         "bounds_at": {"scale-out point shard (B=1, Q=4096, P=4096, k=3)": {
-             "bound_ms": scale["shard_bound"], "bound_by": scale["shard_by"], "plain_ms": scale["shard_plain_ms"],
-             "library_ms": scale["shard_lib_ms"]}},
+         "bounds_at": {**{n: {"bound_ms": ms, "bound_by": by} for n, (ms, by) in knn_edge_bounds.items()},
+                       "scale-out point shard (B=1, Q=4096, P=4096, k=3)": {
+                           "bound_ms": scale["shard_bound"], "bound_by": scale["shard_by"],
+                           "plain_ms": scale["shard_plain_ms"], "library_ms": scale["shard_lib_ms"]},
+                       "vehicle link ingest tick (11 launches)": ingest["knn_bound"]},
          "launches_per_tick": {"scale-out step": scale["launches"]["knn_topk"],
                                "flagship": launches["knn_topk"] // TICKS, "forest_10k": forest["launches"]["knn_topk"] // TICKS,
                                "single robot": single["launches"]["knn_topk"] // SR_TICKS,
@@ -2682,7 +2826,8 @@ def main() -> int:
          "bounds_at": {fixed_at: {"bound_ms": fixed["bound_ms"], "bound_by": fixed["bound_by"]},
                        "forest_10k tick (B=1024, N=30)": forest["sqp_bound"], "single robot tick (B=1, N=30)":
                        single["sqp_bound"], "fleet closed-loop tick (B=64, N=30)": fleet["sqp_bound"],
-                       "single robot closed-loop tick (B=1, N=30)": robot["sqp_bound"]},
+                       "single robot closed-loop tick (B=1, N=30)": robot["sqp_bound"],
+                       scale_step: scale["sqp_bound"], "vehicle link ingest tick (B=1, N=30)": ingest["sqp_bound"]},
          "launches_per_tick": {"scale-out step": scale["launches"]["sqp_solve"],
                                "flagship": launches["sqp_solve"] // TICKS, "forest_10k": forest["launches"]["sqp_solve"] // TICKS,
                                "single robot": single["launches"]["sqp_solve"] // SR_TICKS,
@@ -2700,9 +2845,14 @@ def main() -> int:
          "max_abs_err": ls_err, "ms": ls_ms, "plain_ms": ls_plain_ms, "bound_ms": ls_bound, "bound_by": ls_by,
          "library_ms": None},
         {"name": "op_chain", "route": "cuda", "source": "avoid_mpc_torch/csrc/op_chain.cu",
-         "replaces": "avoid_mpc_tpu/tools/vpu_microbench.py:81", "launches": mb_launches,
-         "max_abs_err": mb_err, "ms": mb_ms, "plain_ms": mb_plain_ms, "bound_ms": mb_bound, "bound_by": mb_by,
-         "library_ms": None, "timed_launch": f"{mb_op} {mb_mode} n_iter={mb_n}"},
+         "replaces": "avoid_mpc_tpu/tools/vpu_microbench.py:81", "launches": sum(mb["launches"].values()),
+         "launches_by_occupancy": mb["launches"], "max_abs_err": mb["err"], "ms": mb["ms"],
+         "plain_ms": mb["plain_ms"], "bound_ms": mb["bound_ms"], "bound_by": mb["bound_by"], "library_ms": None,
+         "timed_launch": "{} {} n_iter={}, 16 warps per SM on {} SMs".format(*MB_TIMED, mb["n_iter"], mb["sms"]),
+         "warp_instr_per_sm_cycle": mb["rate"],
+         "ms_at": {"{} {} n_iter={}, 1 warp per SM".format(*MB_TIMED_ONE_WARP): mb["one_warp"]["ms"]},
+         "bounds_at": {"{} {} n_iter={}, 1 warp per SM".format(*MB_TIMED_ONE_WARP): {
+             k: mb["one_warp"][k] for k in ("bound_ms", "bound_by", "plain_ms")}}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
 

@@ -7,7 +7,9 @@ compute the same thing.
   against the JAX ``ops/knn.cull_by_bbox`` followed by ``knn``;
 - ``roofline``'s operation count for the fused solve against the JAX
   tool's independent tally (its docstring's +-20%), and the fixed-budget
-  bound at the flagship batch;
+  bound at the flagship batch; its ``issue_floor`` arithmetic against the
+  JAX tool's (a warp's 32 lanes in place of the vreg's 1,024), and None on
+  the CPU;
 - ``trace_report`` on a hand-written Chrome trace;
 - ``utils/profiling.device_time``'s record check and ``probe_profiler``'s
   count of short sessions, with stand-in profiler sessions, and
@@ -104,6 +106,35 @@ def test_roofline_tally_within_the_jax_tally():
     ops, n_bytes = roofline.knn_counts(4096, 20, 1024, 3, 1000)
     assert ops == 8 * 20 * 1000 and n_bytes == 4096 * 20 * 12 + 4096 * 1024 * 13 + 4096 * 20 * 3 * 16
     assert roofline.bound_ms(3.35e12, 0) == (1e3, "bytes") and roofline.bound_ms(0, 67e12) == (1e3, "operations")
+
+
+def _jax_issue_floor(vpu_flops, cyc_fma, clock, p50_ms, lanes):
+    """avoid_mpc_tpu/tools/roofline.py's measured-issue floor (its lines
+    193-202 and 227-233, unrounded), with ``lanes`` for the vreg's 8 x 128."""
+    vreg_ops = vpu_flops / 2.0 / lanes
+    return vreg_ops * cyc_fma / clock * 1e3, vreg_ops / (p50_ms * 1e-3 * clock)
+
+
+@pytest.mark.parametrize("rate, clock, n_sm", [(3.6, 1.755e9, 132), (0.9, 1.98e9, 114)])
+def test_issue_floor_is_the_jax_formula_per_warp(rate, clock, n_sm):
+    flops = roofline.sqp_bound(4096, 20, 3, 8, 4, 10)["operations"]
+    rel = {"fma": 1.0, "exp": 3.2}
+    got = roofline.issue_floor(flops, rate, clock, n_sm, p50_ms=4.2, sqp_ms=1.64, relative=rel)
+    # the card issues n_sm x rate warp instructions a cycle: the JAX tool's cycles per vreg op is its inverse
+    t_issue, eff = _jax_issue_floor(flops, 1.0 / (n_sm * rate), clock, 4.2, lanes=32)
+    assert got["warp_instr"] == flops / 2 / 32
+    assert got["t_issue_measured_ms"] == pytest.approx(t_issue, rel=1e-12)
+    assert got["effective_warp_instr_per_sm_cycle_at_measured_p50"] * n_sm == pytest.approx(eff, rel=1e-12)
+    _, eff_sqp = _jax_issue_floor(flops, 1.0 / (n_sm * rate), clock, 1.64, lanes=32)
+    assert got["sqp_solve"]["effective_warp_instr_per_sm_cycle"] * n_sm == pytest.approx(eff_sqp, rel=1e-12)
+    assert got["sqp_solve"]["over_issue_floor"] == pytest.approx(1.64 / t_issue, rel=1e-12)
+    assert (got["measured_fma_warp_instr_per_sm_cycle"], got["sm_clock_hz_measured"], got["n_sm"]) == (rate, clock, n_sm)
+    assert got["ilp8x4_relative_to_fma"] == rel
+    # at the measured rate the floor is the p50's time: the effective rate equals the measured one
+    at_floor = roofline.issue_floor(flops, rate, clock, n_sm, p50_ms=t_issue)
+    assert at_floor["effective_warp_instr_per_sm_cycle_at_measured_p50"] == pytest.approx(rate, rel=1e-12)
+    assert at_floor["sqp_solve"] == {"kernel_ms": None, "effective_warp_instr_per_sm_cycle": None,
+                                     "over_issue_floor": None}
 
 
 def _kernel(name, ts, dur, stream=7):
@@ -244,9 +275,10 @@ def test_probe_mains_on_the_cpu(capsys, tmp_path):
     (line,) = _json_lines(capsys.readouterr().out)
     assert {"metric", "iter_budget", "batch", "horizon", "cloud_points", "sqp_iters", "flops_xla_cost_model",
             "bytes_accessed_xla_cost_model", "pallas_io_bytes", "pallas_vpu_flops", "measured_p50_step_ms",
-            "compile_s", "device", "kernels", "early_exit", "h100"} <= line.keys()
+            "compile_s", "device", "kernels", "early_exit", "h100", "issue_floor"} <= line.keys()
     assert line["pallas_vpu_flops"] == roofline.sqp_bound(2, 20, 3, 8, 4, 1)["operations"]
     assert rec["early_exit"]["iterations"] == [10, 10] and line["kernels"]["sqp_solve"]["kernel_ms"] is None
+    assert line["issue_floor"] is None and line["device"] == "cpu"  # no measurement on the CPU
 
     out = probe_fused_split.main(["--device", "cpu", "--batch", "2", "--points", "16", "--chain", "1", "--reps", "1",
                                   "--iters", "1"])
