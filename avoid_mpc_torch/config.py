@@ -47,6 +47,20 @@ class MPCWeights:
             dtype=np.float64,
         )
 
+    @staticmethod
+    def from_vector(w) -> "MPCWeights":
+        """The weights of a 25-vector in reference ordering (the inverse of
+        :meth:`as_vector`); the omnidirectional weight stays 0."""
+        w = np.asarray(w, dtype=np.float64)
+        if w.shape != (WEIGHTS_DIM,):
+            raise ValueError(f"MPCWeights.from_vector: want a ({WEIGHTS_DIM},) vector, got shape {w.shape}")
+        return MPCWeights(
+            q_goal=tuple(float(x) for x in w[:STATE_DIM]),
+            q_path=tuple(float(x) for x in w[STATE_DIM:2 * STATE_DIM]),
+            q_u=tuple(float(x) for x in w[2 * STATE_DIM:2 * STATE_DIM + CONTROL_DIM]),
+            collide_lambda=float(w[-1]),
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class MPCConfig:

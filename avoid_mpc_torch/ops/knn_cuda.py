@@ -15,8 +15,10 @@ load; the slices' top-k lists merge in shared memory by the lexicographic
 (d2, index) order, and where few scenarios would leave the card idle (the
 map's dedupe, the brute-force rescue) or P passes ``MAX_RANGE`` the points
 are split across blocks and the last block of a query tile folds the
-ranges' lists.
-:func:`kernel_order_model` is the kernel's slice, range and merge order in
+ranges' lists.  Any k whose lists fit a block's shared memory (every k up
+to 64 at every caller's shape): a register instance up to ``REG_MAX_K``,
+the runtime-k kernel, its lists in shared memory, above.
+:func:`kernel_order_model` is the kernels' slice, range and merge order in
 plain PyTorch, which the CPU tests hold equal to :func:`knn_plain`.
 """
 
@@ -31,11 +33,10 @@ import torch
 from avoid_mpc_torch import cuda_build
 from avoid_mpc_torch.ops.knn import FAR_SENTINEL, _sqrt_rn, knn_plain
 
-# the kernel's template instances (csrc/knn.cu::knn_kernel_for): the
-# associations and warm starts (1..4) and the rolling map's prune (10)
-_K_SUPPORTED = (1, 2, 3, 4, 10)
 MAX_THREADS = 128  # KNN_MAX_THREADS in csrc/knn.cu
 MAX_RANGE = 2048  # KNN_MAX_RANGE: points a block stages (16 B each)
+REG_MAX_K = 16  # KNN_REG_MAX_K: k up to it runs a register instance, above it the runtime-k kernel
+MAX_SHARED = 232_448 - 128  # KNN_MAX_SHARED: an H100 block's 232,448 B less KNN_STATIC_SMEM
 MAX_QUERIES_PER_BLOCK = 64
 MAX_SLICES = 16
 TARGET_BLOCKS = 2 * 132  # two blocks per SM of an H100 SXM
@@ -58,9 +59,13 @@ class KnnGeometry(NamedTuple):
 
 
 def shared_bytes(threads: int, queries_per_block: int, k: int, range_points: int) -> int:
-    """``csrc/knn.cu::knn_smem_bytes``: the float4 tile of a range's points,
-    or every thread's k (d2, index, x, y, z) and the block's output staging
-    (k dists and 3k coordinates per query), whichever is larger."""
+    """``csrc/knn.cu::knn_smem_bytes``.  Up to ``REG_MAX_K``: the float4
+    tile of a range's points, or every thread's k (d2, index, x, y, z) and
+    the block's output staging (k dists and 3k coordinates per query),
+    whichever is larger.  Above it: the tile and every thread's k (d2,
+    index) side by side."""
+    if k > REG_MAX_K:
+        return 16 * range_points + 8 * threads * k
     return max(16 * range_points, 20 * threads * k + 16 * queries_per_block * k)
 
 
@@ -74,9 +79,10 @@ def launch_geometry(b: int, q: int, p: int, k: int) -> KnnGeometry:
     a tile a block stages whole, and further, into ranges of at least
     ``MIN_RANGE``, while B x query tiles x ranges is below
     ``TARGET_BLOCKS``.  Raises ``ValueError`` for a shape the kernel does
-    not take."""
-    if b < 1 or q < 1 or p < 0 or k not in _K_SUPPORTED:
-        raise ValueError(f"knn_topk: want B, Q >= 1, P >= 0 and k in {_K_SUPPORTED}; got {b}, {q}, {p}, {k}")
+    not take: B, Q or k below 1, P below 0, or more than ``MAX_SHARED``
+    bytes of shared memory a block (k above 194 at the widest block)."""
+    if b < 1 or q < 1 or p < 0 or k < 1:
+        raise ValueError(f"knn_topk: want B, Q, k >= 1 and P >= 0; got {b}, {q}, {p}, {k}")
     qpb = min(q, MAX_QUERIES_PER_BLOCK)
     slices = max(1, min(MAX_SLICES, MAX_THREADS // qpb))
     threads = (qpb * slices + 31) // 32 * 32
@@ -87,8 +93,11 @@ def launch_geometry(b: int, q: int, p: int, k: int) -> KnnGeometry:
     grid = tiles * splits
     if grid >= 2**31:
         raise ValueError(f"knn_topk: B={b}, Q={q}, P={p} needs {grid} blocks")
-    return KnnGeometry(grid, threads, qpb, slices, splits, range_points,
-                       shared_bytes(threads, qpb, k, range_points))
+    smem = shared_bytes(threads, qpb, k, range_points)
+    if smem > MAX_SHARED:
+        raise ValueError(f"knn_topk: k={k} at Q={q}, P={p} needs {smem} B of shared memory a block, above the "
+                         f"kernel's limit of MAX_SHARED = {MAX_SHARED} B")
+    return KnnGeometry(grid, threads, qpb, slices, splits, range_points, smem)
 
 
 def kernel_order_model(queries: torch.Tensor, points: torch.Tensor, mask: torch.Tensor, k: int,
@@ -97,8 +106,8 @@ def kernel_order_model(queries: torch.Tensor, points: torch.Tensor, mask: torch.
     s sweeps its contiguous run of ceil(len / slices) points with strict-<
     insertion on d2; the slices' lists merge into slice 0 by (d2, index);
     with several ranges, slice s folds the ranges s, s + slices, ... and the
-    slices merge again.
-    Masked points carry +inf coordinates.  ``geo`` defaults to
+    slices merge again.  The register instances and the runtime-k kernel
+    share this order.  Masked points carry +inf coordinates.  ``geo`` defaults to
     :func:`launch_geometry`'s; a test may shrink its ranges.
     Returns what :func:`knn_plain` returns; slow, for small shapes."""
     b, q, _ = queries.shape
@@ -113,25 +122,23 @@ def kernel_order_model(queries: torch.Tensor, points: torch.Tensor, mask: torch.
                 torch.full(lead + (k,), 2**31 - 1, dtype=torch.long, device=dev),
                 torch.zeros(lead + (k, 3), dtype=dt, device=dev))
 
+    slot = torch.arange(k, device=dev)
+    below = (slot - 1).clamp_min(0)
+
     def insert(top, d, i, xyz, lex: bool):
-        """Insert one candidate per list (lists along the leading dims)."""
-        bd, bi, bp = (t.clone() for t in top)
-        win = d < bd[..., -1]
-        if lex:
-            win |= (d == bd[..., -1]) & (i < bi[..., -1])
-        bd[..., -1] = torch.where(win, d, bd[..., -1])
-        bi[..., -1] = torch.where(win, i, bi[..., -1])
-        bp[..., -1, :] = torch.where(win[..., None], xyz, bp[..., -1, :])
-        for s in range(k - 1, 0, -1):
-            sw = bd[..., s] < bd[..., s - 1]
-            if lex:
-                sw |= (bd[..., s] == bd[..., s - 1]) & (bi[..., s] < bi[..., s - 1])
-            for t in (bd, bi):
-                lo, hi = t[..., s - 1].clone(), t[..., s].clone()
-                t[..., s - 1], t[..., s] = torch.where(sw, hi, lo), torch.where(sw, lo, hi)
-            lo, hi = bp[..., s - 1, :].clone(), bp[..., s, :].clone()
-            bp[..., s - 1, :], bp[..., s, :] = torch.where(sw[..., None], hi, lo), torch.where(sw[..., None], lo, hi)
-        return bd, bi, bp
+        """Insert one candidate per sorted list (lists along the leading
+        dims): a sweep's point enters by d2 < the last slot's and goes after
+        its ties, another list's entry by the (d2, index) order."""
+        bd, bi, bp = top
+        d_, i_ = d[..., None], i[..., None]
+        ahead = (bd < d_) | ((bd == d_) & (bi < i_)) if lex else bd <= d_
+        enters = (d < bd[..., -1]) | ((d == bd[..., -1]) & (i < bi[..., -1])) if lex else d < bd[..., -1]
+        pos = torch.where(enters, ahead.sum(-1), k)[..., None]  # the candidate's slot; k: it stays out
+        keep, at = slot < pos, slot == pos
+        shifted = (bd[..., below], bi[..., below], bp[..., below, :])
+        return (torch.where(keep, bd, torch.where(at, d_, shifted[0])),
+                torch.where(keep, bi, torch.where(at, i_, shifted[1])),
+                torch.where(keep[..., None], bp, torch.where(at[..., None], xyz[..., None, :], shifted[2])))
 
     def merge_slices(lists):  # lists: S tops of (B, Q) lists; merge into slice 0
         top = lists[0]
@@ -217,8 +224,6 @@ def knn_topk(queries: torch.Tensor, points: torch.Tensor, mask: torch.Tensor, k:
         raise ValueError(f"knn_topk: mask must be (B,P) = ({b},{p}); got {tuple(mask.shape)}")
     if not (queries.is_contiguous() and points.is_contiguous() and mask.is_contiguous()):
         raise ValueError("knn_topk: inputs must be contiguous")
-    if k not in _K_SUPPORTED:
-        raise ValueError(f"knn_topk: k must be one of {_K_SUPPORTED}, got {k}")
 
     dists = torch.empty((b, q, k), dtype=torch.float32, device=dev)
     pts = torch.empty((b, q, k, 3), dtype=torch.float32, device=dev)

@@ -3,10 +3,11 @@ device times, for one checkout or for two checkouts run alternately.
 
     python -m avoid_mpc_torch.tools.knn_shapes [--against DIR]
 
-``EDGE_CASES`` and ``ENGINE_SHAPES`` (the engine tick's, the rolling
-map's and the scale-out step's point shard) are the shapes at which
-``chip_smoke.py`` phase 2 holds ``knn_topk`` equal to ``knn_plain``
-(``torch.equal`` on distances and coordinates);
+``EDGE_CASES`` (k 1 to 64 among them) and ``ENGINE_SHAPES`` (the engine
+tick's, the rolling map's and the scale-out step's point shard) are the
+shapes at which ``chip_smoke.py`` phase 2 holds ``knn_topk`` equal to
+``knn_plain`` (``torch.equal`` on distances and coordinates), and
+``FLAGSHIP_COUNTS`` the k it gates and times at the flagship shape;
 :func:`make_inputs` builds each from a seed on the device.
 ``TIMED`` are the shapes the callers run: the flagship association (B=4096,
 Q=20, P=1024, k=3, ``step.build_problem_batch``'s forest clouds), the
@@ -56,7 +57,22 @@ EDGE_CASES = {
     "dedupe": (1, FRAME, FRAME, 1, "frame"),
     "rescue": (1, 30, MAP_POINTS, 3, "masked"),
     "rescue lattice ties": (1, 30, MAP_POINTS, 3, "lattice"),
+    # other nearest-point counts (a config's nearest_point_num): the split
+    # shapes of the register instances and the runtime-k kernel (k > 16),
+    # ties, fewer valid points than k, and nothing valid
+    "k=5 rescue": (1, 30, MAP_POINTS, 5, "masked"),
+    "k=5 dedupe": (1, FRAME, FRAME, 5, "frame"),
+    "k=17 dedupe": (1, FRAME, FRAME, 17, "frame"),
+    "k=64 rescue": (1, 30, MAP_POINTS, 64, "masked"),
+    "k=32 lattice ties": (4096, 20, 1024, 32, "lattice"),
+    "k=17 Q=1 ranges lattice ties": (100, 1, FRAME, 17, "lattice"),
+    "k=64 P=40": (4096, 20, 40, 64, "masked"),
+    "k=64 all masked": (256, 20, 1024, 64, "all masked"),
 }
+# the nearest-point counts chip_smoke.py phase 2 gates and times at the
+# flagship shape: every register instance the callers use, the others a
+# config may ask for, and the runtime-k kernel
+FLAGSHIP_COUNTS = (1, 2, 3, 4, 5, 8, 10, 16, 17, 32, 64)
 FLEET_FRAME = 20 * 15  # the Monte-Carlo fleet's points per frame (80 x 60 render, grid scale 4)
 FLEET_MAP = 101 * FLEET_FRAME  # its queryable cloud: 100 keyframes and the current frame
 # The engine tick's shapes (B, Q, P, k, inputs): the forest_10k association

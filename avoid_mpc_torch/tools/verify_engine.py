@@ -115,10 +115,11 @@ def compare(outs: dict, gold: dict) -> dict:
     return out
 
 
-def run_ticks(b: int, states: dict, device: str = "cuda") -> dict:
+def run_ticks(b: int, states: dict, device: str = "cuda", cfg=None) -> dict:
     """The port's engine on the first ``b`` scenarios of :func:`forest_map`, one tick
     from each input state of ``states`` (``ref_path`` (T, >=b, N, 10) and
-    ``us_warm`` (T, >=b, N, 4), numpy, as a reference's chain gave them).
+    ``us_warm`` (T, >=b, N, 4), numpy, as a reference's chain gave them),
+    under ``cfg`` (default ``EngineConfig()``, the golden's).
     Returns field -> (T, b, ...) numpy arrays of the ``OUT_FIELDS``."""
     import torch
 
@@ -126,7 +127,7 @@ def run_ticks(b: int, states: dict, device: str = "cuda") -> dict:
     from avoid_mpc_torch.engine.receding import EngineHyper, EngineParams, engine_init, receding_step
     from avoid_mpc_torch.mapping.rolling_map import RollingMap
 
-    cfg = config.EngineConfig()
+    cfg = cfg or config.EngineConfig()
     m = interop.rolling_map_from_numpy(RollingMap(**forest_map(b)), device=device)
     p, h = EngineParams.from_config(cfg, device=device), EngineHyper.from_config(cfg)
     state = engine_init(cfg, batch=b, device=device)

@@ -80,15 +80,16 @@ def unflatten(flat: dict, prefix: str):
     return ns(root)
 
 
-def run_ticks(gold: dict, device: str = "cuda") -> dict:
-    """The port's tick from each stored input state on ``device``: field ->
-    (T, B, ...) numpy arrays of the diagnostics, the next plant position
-    and velocity (``next_p``, ``next_v``) and the depth frames."""
+def run_ticks(gold: dict, device: str = "cuda", cfg=None) -> dict:
+    """The port's tick from each stored input state on ``device``, under
+    ``cfg`` (default the golden's, :func:`config`): field -> (T, B, ...)
+    numpy arrays of the diagnostics, the next plant position and velocity
+    (``next_p``, ``next_v``) and the depth frames."""
     from avoid_mpc_torch import config as tconfig
     from avoid_mpc_torch import interop
     from avoid_mpc_torch.sim import world
 
-    params, hyper = world.build_world(config(tconfig), device=device, **WORLD)
+    params, hyper = world.build_world(cfg or config(tconfig), device=device, **WORLD)
     hyper = hyper._replace(use_depth_noise=False)
     field = interop.obstacle_field_from_numpy(unflatten(gold, "field"), device)
     outs = {f: [] for f in DIAG_FIELDS + ("next_p", "next_v", "depth")}

@@ -16,7 +16,9 @@ ticks, once with the fused solve and once with the per-phase solve
    the launch of the sweep, line-search, SQP and k-NN kernels, the SQP
    kernel's resident warps per SM (CUDA's occupancy calculator; at least
    8 at B=4096, N=20) and the k-NN kernel's resident blocks per SM; the
-   ``-Xptxas -v`` line of every ``knn_topk_kernel`` instance (no spills);
+   ``-Xptxas -v`` line of every k-NN kernel: the register instances
+   ``knn_topk_kernel<1..16>`` (none may spill, none may be missing) and the
+   runtime-k ``knn_topk_kernel_smem`` (registers, stack and spills printed);
 2. k-NN kernel vs plain at B=4096, Q=20, P=1024, k=3 with ~10% of the
    points masked, one scenario with fewer than 3 valid points and one with
    duplicated points: distances and coordinates must be identical; its
@@ -27,14 +29,22 @@ ticks, once with the fused solve and once with the per-phase solve
    and the kernel's time at the dedupe and rescue shapes; then identity,
    time and bound at the engine's shapes (``tools/knn_shapes.ENGINE_SHAPES``:
    the ``forest_10k`` association and edge warm start, the map prune at
-   k=10, the single-robot edge warm start and rescue);
+   k=10, the single-robot edge warm start and rescue); then at other
+   nearest-point counts: the edge shapes include k=5 at the rescue and
+   dedupe shapes and the runtime-k kernel (k 17 to 64) split, on lattice
+   ties, with fewer valid points than k and with none, and at every k of
+   ``knn_shapes.FLAGSHIP_COUNTS`` (1 to 64) the kernel is identical to
+   plain on the flagship's gate inputs, with its time and bound; a CUDA
+   float32 ``ops.knn.knn`` call at k=37 is one launch and runs no plain
+   path;
 3. SQP kernel vs plain on the flagship batch: (a) iters=3, grad_tol=0:
    max|dus| <= 1e-3 and rel dcost <= 1e-4; (b) iters=10, grad_tol=1e-4,
    tol_exit True then False: max|dus| <= 1e-3 on the scenarios both
    converged, converged fractions within 0.02, outputs finite and in bounds;
    the cold solve's kernel time (profiler) and its updates per scenario
-   (mean, p99, max); (c) both gates at every ``EDGE_CASES`` shape below,
-   (a) on >= 99.9% of scenarios, each of which must run 3 updates;
+   (mean, p99, max); (c) both gates at every ``EDGE_CASES`` shape below
+   (K = 5 and 8 among them), (a) on >= 99.9% of scenarios, each of which
+   must run 3 updates;
 4. SQP kernel vs the JAX CPU golden (tests/data/fused_gold.npz): on the
    mutually-converged subset max|du0| <= 1e-3;
 5. the fused main path, timed with CUDA events: chained ticks, each kernel's
@@ -49,8 +59,8 @@ ticks, once with the fused solve and once with the per-phase solve
 7. line-search kernel vs plain on the same iterates (gains from the plain
    sweep): us / xs / cost within 2e-4 and any_ok equal on >= 99.9% of
    scenarios; then both kernels at the edge shapes (``EDGE_CASES``: B=1,
-   B=4097 with a ragged last block, N=30, 1 and 4 obstacles per node, 1
-   and 12 alphas, tight bounds with most controls clamped; a third of the
+   B=4097 with a ragged last block, N=30, 1, 4, 5 and 8 obstacles per
+   node, 1 and 12 alphas, tight bounds with most controls clamped; a third of the
    line-search scenarios accept no alpha) at the same tolerances;
 8. the per-phase solve vs ``solve_plain`` (phase 3's results): (a) iters=3,
    grad_tol=0: max|dus| <= 1e-3, rel dcost <= 1e-4; (b) iters=10: max|dus|
@@ -183,7 +193,20 @@ ticks, once with the fused solve and once with the per-phase solve
     k-NN distances equal brute force's wherever those are within R_CUT;
     (f) ``tools/diagnose_fused_outlier``: the golden record (>= 120 of 256
     mutually converged at max |du0| <= 1.0445e-4) and phase 4's numbers;
-21. a ``kernels`` JSON line; the last line is the device JSON.
+21. ``nearest_point_num: 5`` through the entry points: (a) the
+    ``forest_10k`` engine tick (phase 11's maps) held against the port's
+    CPU tick from the card's input states (``tools/verify_engine``'s gate),
+    five obstacles a node, then 5 ticks timed with 6 k-NN (3 at k=5) and 3
+    SQP launches a tick; (b) ``tools/run_montecarlo.main`` with
+    ``--config`` a copy of ``configs/default.yaml`` at
+    ``nearest_point_num: 5`` in a temporary directory, B=64 for 20 ticks:
+    8 k-NN (3 at k=5) and 3 SQP launches a tick, a finite summary; then
+    the world tick at k=5 on phase 14's stored ticks against the port's
+    CPU run of the same ticks (``tools/verify_world``'s gate); (c) the
+    single robot's culled
+    association (``knn_culled``, B=1) at k=5: two launches, equal to the
+    CPU's;
+22. a ``kernels`` JSON line; the last line is the device JSON.
 
 Kernel times (phases 5, 9, 10 and the kernels line) are the kernel's own
 device time from ``torch.profiler``'s kernel records; CUDA events around
@@ -302,9 +325,10 @@ def disagree(got, want, tol: float):
     return ((got - want).abs() > tol + tol * want.abs()).reshape(got.shape[0], -1).any(dim=1)
 
 
-# Edge shapes of phases 6 and 7: (name, B, N, K obstacles, n_alphas, tight bounds).
-# B=1 and B=4097 leave a ragged last block in both kernels (4 and 8
-# scenarios per block); N=30 is configs/default.yaml's horizon.
+# Edge shapes of phases 3c, 6 and 7: (name, B, N, K obstacles, n_alphas, tight
+# bounds).  B=1 and B=4097 leave a ragged last block in both kernels (4 and
+# 8 scenarios per block); N=30 is configs/default.yaml's horizon; K=5 and 8
+# are other nearest_point_num values a config may set.
 EDGE_CASES = (
     ("B=1", 1, 20, 3, 8, False),
     ("B=4097", 4097, 20, 3, 8, False),
@@ -312,6 +336,8 @@ EDGE_CASES = (
     ("K=1 A=1", 4096, 20, 1, 1, False),
     ("K=4 A=12", 4096, 20, 4, 12, False),
     ("tight bounds", 4096, 20, 3, 8, True),
+    ("K=5", 4096, 20, 5, 8, False),
+    ("K=8 N=30", 4096, 30, 8, 8, False),
 )
 SWEEP_TOLS = (2e-4, 2e-3, 1e-3, 1e-3, 1e-3)  # kff, K, dV1, dV2, pg
 LS_TOL = 2e-4  # us, xs, cost
@@ -551,6 +577,70 @@ def knn_edge_shapes(dev) -> tuple[float, dict, dict]:
               f"{e}, kernel {ms:.4f} ms (device time, profiler), bound {bound:.4f} ms ({by}), ratio {ms / bound:.1f}x, "
               f"launch {geo.grid} blocks x {geo.threads} threads, {geo.slices} slices, {geo.splits} ranges of "
               f"{geo.range_points}, {geo.shared_bytes} B shared", flush=True)
+    return err, times, bounds
+
+
+def knn_counts_phase(q, pts_gate, mask_gate, pts, mask) -> tuple[float, dict, dict]:
+    """Phase 2 at other nearest-point counts: at every
+    ``knn_shapes.FLAGSHIP_COUNTS`` k, ``knn_topk`` identical to
+    ``knn_plain`` on the flagship's gate inputs (one scenario with 2 valid
+    points, one with every point duplicated), then its time and bound on
+    the flagship's own inputs; and one CUDA float32 ``ops.knn.knn`` call
+    at k=37: one launch of the hand-written kernel and no plain path.
+    Returns the max abs difference, the times and the bounds by k."""
+    import importlib
+
+    import torch
+
+    from avoid_mpc_torch.ops import knn_cuda
+    from avoid_mpc_torch.ops.knn import knn_plain
+    from avoid_mpc_torch.tools import knn_shapes
+
+    knn_mod = importlib.import_module("avoid_mpc_torch.ops.knn")  # the package exports the function as knn
+    b, q_n, p_n = q.shape[0], q.shape[1], pts.shape[1]
+    err, times, bounds = 0.0, {}, {}
+    for k in knn_shapes.FLAGSHIP_COUNTS:
+        d_k, p_k = knn_cuda.knn_topk(q, pts_gate, mask_gate, k)
+        d_p, p_p = knn_plain(q, pts_gate, mask_gate, k)
+        torch.cuda.synchronize()
+        same = torch.equal(d_k, d_p) and torch.equal(p_k, p_p)
+        fin = torch.isfinite(d_k) & torch.isfinite(d_p)
+        e = max(float((d_k - d_p)[fin].abs().max()) if fin.any() else 0.0, float((p_k - p_p).abs().max()))
+        err = max(err, e)
+        empty = bool(torch.isinf(d_k[0, :, 2:]).all()) and bool((p_k[0, :, 2:] == 1e4).all())
+        check(same and empty, f"knn at k={k}: kernel differs from plain (max abs err {e}), empty slots inf / "
+                              f"FAR_SENTINEL {empty}")
+        times[k] = kernel_ms(lambda: knn_cuda.knn_topk(q, pts, mask, k), "knn_topk", reps=20)
+        n_ops, n_bytes = knn_counts(b, q_n, p_n, k, int(mask.sum()))
+        bounds[k] = bound_ms(n_bytes, n_ops, F32_INSTR_PER_S)
+        geo = knn_cuda.launch_geometry(b, q_n, p_n, k)
+        print(f"phase 2 knn k={k} ({'register instance' if k <= knn_cuda.REG_MAX_K else 'runtime-k kernel'}): "
+              f"identical={same} max abs err {e}, kernel {times[k]:.4f} ms (device time, profiler), bound "
+              f"{bounds[k][0]:.4f} ms ({bounds[k][1]}), ratio {times[k] / bounds[k][0]:.1f}x, {geo.shared_bytes} B "
+              f"shared, {knn_cuda.blocks_per_sm(geo, k, q.device.index)} blocks per SM", flush=True)
+    # a CUDA float32 call at k=37 through the association's entry point
+    plain_calls = []
+
+    def counted_plain(*args):
+        plain_calls.append(args[3])
+        return knn_plain(*args)
+
+    saved = knn_mod.knn_plain, knn_cuda.knn_plain
+    knn_mod.knn_plain = knn_cuda.knn_plain = counted_plain
+    try:
+        n0 = knn_cuda.knn_topk.launches
+        with knn_cuda.record_calls() as log:
+            d37, p37 = knn_mod.knn(q, pts, mask, 37)
+        launched = knn_cuda.knn_topk.launches - n0
+    finally:
+        knn_mod.knn_plain, knn_cuda.knn_plain = saved
+    d_p, p_p = knn_plain(q, pts, mask, 37)
+    same = torch.equal(d37, d_p) and torch.equal(p37, p_p)
+    logged = [tuple(c[:4]) for c in log]
+    check(launched == 1 and logged == [(b, q_n, p_n, 37)] and not plain_calls and same,
+          f"knn k=37 through ops.knn.knn: {launched} launches {logged}, plain calls {plain_calls}, equal to plain {same}")
+    print(f"phase 2 knn k=37 through ops.knn.knn (CUDA float32): {launched} launch of knn_topk_kernel_smem {logged}, "
+          f"plain path calls {len(plain_calls)}, identical to knn_plain {same}", flush=True)
     return err, times, bounds
 
 
@@ -2384,6 +2474,166 @@ def probes_phase(dev, flagship, refs: dict) -> dict:
     return res
 
 
+# Phase 21: a config's nearest_point_num other than the default 3, through the entry points.
+NPN = 5  # nearest_point_num
+NPN_TICKS = 5  # forest_10k engine ticks counted and timed
+NPN_FLEET_TICKS, NPN_FLEET_CHUNK = 20, 10  # the fleet through run_montecarlo.main
+
+
+def nearest_points_phase(dev, forest_tick) -> dict:
+    """Phase 21: ``nearest_point_num: 5`` through the entry points a user
+    calls.  (a) ``engine/receding.receding_step`` at ``forest_10k``'s
+    geometry (phase 11's maps and quad states): GATE_TICKS chained ticks
+    held against the port's CPU tick from the card's input states (the
+    gate of ``tools/verify_engine.compare``), five obstacles a node, then
+    NPN_TICKS ticks timed with 6 k-NN (3 of them at k=5) and 3 SQP
+    launches a tick.  (b) ``tools/run_montecarlo.main`` with ``--config``
+    a copy of ``configs/default.yaml`` at ``nearest_point_num: 5`` in a
+    temporary directory, B=64 for 20 ticks: 8 k-NN (3 at k=5) and 3 SQP
+    launches a tick, a finite summary; then the closed-loop tick at k=5 on
+    phase 14's stored ticks (the golden's world, 8 scenarios x 12 ticks,
+    each from its input state) held against the port's CPU run of the
+    same ticks (the gate of ``tools/verify_world.compare``), 2 k=5
+    launches a tick.  (c) the single robot's culled
+    association (``ops/knn.knn_culled``, B=1, the map's 100 + 1 frames)
+    at k=5: two launches, equal to the CPU's."""
+    import contextlib
+    import dataclasses
+    import io
+    import re
+    import tempfile
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from avoid_mpc_torch import config
+    from avoid_mpc_torch.engine.receding import EngineHyper, EngineParams, engine_init, receding_step
+    from avoid_mpc_torch.ops.knn import knn_culled
+    from avoid_mpc_torch.ops.knn_cuda import record_calls
+    from avoid_mpc_torch.tools import knn_shapes
+    from avoid_mpc_torch.tools import run_montecarlo as mc
+    from avoid_mpc_torch.tools import verify_engine as ve
+    from avoid_mpc_torch.tools import verify_world as vw
+
+    t21 = time.perf_counter()
+    # (a) the engine tick
+    base = config.EngineConfig()
+    cfg = dataclasses.replace(base, mpc=dataclasses.replace(base.mpc, nearest_point_count=NPN))
+    p, h = EngineParams.from_config(cfg, device=dev), EngineHyper.from_config(cfg)
+    _, quad, m, _, _ = forest_tick
+    state = engine_init(cfg, batch=FOREST_B, device=dev)
+    states, outs = {"ref_path": [], "us_warm": []}, {f: [] for f in ve.OUT_FIELDS}
+    for _ in range(GATE_TICKS):
+        states["ref_path"].append(state.ref_path.cpu().numpy())
+        states["us_warm"].append(state.us_warm.cpu().numpy())
+        state, out = receding_step(state, quad, m, p, h)
+        for f in ve.OUT_FIELDS:
+            outs[f].append(getattr(out, f).cpu().numpy())
+    states, outs = ({k: np.stack(v) for k, v in d.items()} for d in (states, outs))
+    obs_shape = tuple(out.obstacles.shape)
+    check(h.k == NPN and obs_shape == (FOREST_B, h.n, NPN, 3), f"phase 21 engine: k {h.k}, obstacles {obs_shape}")
+    t0 = time.perf_counter()
+    cpu = ve.run_ticks(ve.N_GOLD, states, "cpu", cfg)
+    engine_gate_line(f"phase 21 forest_10k tick at nearest_point_num {NPN} vs the port's CPU tick ({ve.N_GOLD} "
+                     f"scenarios, {GATE_TICKS} ticks, {time.perf_counter() - t0:.1f} s on the host; obstacles "
+                     f"{obs_shape})", ve.compare(outs, cpu))
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(NPN_TICKS + 1)]
+    ev[0].record()
+    for i in range(NPN_TICKS):
+        state, out = receding_step(state, quad, m, p, h)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    ticks_ms = sorted(ev[i].elapsed_time(ev[i + 1]) for i in range(NPN_TICKS))
+    with record_calls() as log:
+        receding_step(state, quad, m, p, h)
+    ks = dict(Counter(c[3] for c in log))
+    want = {"riccati_backward": 0, "line_search": 0,
+            **{k: v * NPN_TICKS for k, v in ENGINE_LAUNCHES["forest_10k"].items()}}
+    box = control_box_ok(out, p.sp)
+    check(launches == want and ks == {1: 3, NPN: 3} and box,
+          f"phase 21 engine: launch counts {launches} != {want}, or k of one tick's launches {ks}, or u_cmd outside "
+          f"the box ({box})")
+    print(f"phase 21 forest_10k at nearest_point_num {NPN}: {NPN_TICKS} chained ticks, p50 tick "
+          f"{ticks_ms[NPN_TICKS // 2]:.3f} ms (min {ticks_ms[0]:.3f}, max {ticks_ms[-1]:.3f}; CUDA events), launches "
+          f"{launches}, one tick's k-NN launches by k {ks}, u_cmd finite and in the box {box}", flush=True)
+
+    # (b) the fleet through run_montecarlo.main with a YAML at nearest_point_num 5
+    text = (ROOT / "configs" / "default.yaml").read_text()
+    check(re.search(r"^nearest_point_num: 3$", text, flags=re.M) is not None,
+          "phase 21: configs/default.yaml has no 'nearest_point_num: 3' line")
+    with tempfile.TemporaryDirectory() as tmp:
+        yaml_path = Path(tmp) / f"nearest_point_num_{NPN}.yaml"
+        yaml_path.write_text(re.sub(r"^nearest_point_num: 3$", f"nearest_point_num: {NPN}", text, flags=re.M))
+        argv = ["--config", str(yaml_path), "--batch", str(FLEET_B), "--ticks", str(NPN_FLEET_TICKS), "--chunk",
+                str(NPN_FLEET_CHUNK), "--device", str(dev), "--out", str(Path(tmp) / "run")]
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        with record_calls() as log, contextlib.redirect_stdout(io.StringIO()) as said:
+            summary = mc.main(argv)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches = launch_counts()
+        camp = mc.setup(mc.parse_args(argv))
+    ks = dict(Counter(c[3] for c in log))
+    per_tick = ENGINE_LAUNCHES["fleet closed loop"]
+    want = {"riccati_backward": 0, "line_search": 0, **{k: v * NPN_FLEET_TICKS for k, v in per_tick.items()}}
+    fin = all(math.isfinite(summary[f]) for f in ("final_x_mean", "min_clearance", "tick_ms_p50"))
+    check(launches == want and ks.get(NPN) == 3 * NPN_FLEET_TICKS and camp.cfg.mpc.nearest_point_count == NPN
+          and summary["ticks"] == NPN_FLEET_TICKS and fin,
+          f"phase 21 fleet: launches {launches} != {want}, or k-NN launches by k {ks}, or the config's count "
+          f"{camp.cfg.mpc.nearest_point_count}, or summary {summary}")
+    print(f"phase 21 fleet through run_montecarlo.main (--config nearest_point_num {NPN}, B={FLEET_B}, "
+          f"{NPN_FLEET_TICKS} ticks) in {main_s:.1f} s: launches {launches} ({per_tick} a tick), k-NN launches by k "
+          f"{ks}, tick p50 {summary['tick_ms_p50']:.3f} ms (host clock), final_x_mean {summary['final_x_mean']:.3f}, "
+          f"min_clearance {summary['min_clearance']:.3f}, finite {fin}; {len(said.getvalue().splitlines())} lines "
+          f"of its output kept off this log", flush=True)
+    # the closed-loop tick at k=5 against the CPU from the same inputs: phase
+    # 14's stored ticks (the golden's world and input states), each from its
+    # own input state on the card and on the host
+    cfg_w = vw.config(config)
+    cfg_w = dataclasses.replace(cfg_w, mpc=dataclasses.replace(cfg_w.mpc, nearest_point_count=NPN))
+    gold = dict(np.load(vw.GOLDEN))
+    with record_calls() as log:
+        card = vw.run_ticks(gold, dev, cfg_w)
+    t0 = time.perf_counter()
+    host = vw.run_ticks(gold, "cpu", cfg_w)
+    cpu_s = time.perf_counter() - t0
+    ks = dict(Counter(c[3] for c in log))
+    r = vw.compare(card, host, 2.0 * cfg_w.perception.depth_max)
+    label = (f"phase 21 world tick at nearest_point_num {NPN} on the card vs the port's CPU run of the same ticks "
+             f"(phase 14's {len(gold['ticks'])} stored ticks of {vw.N_GOLD} scenarios, {cpu_s:.1f} s on the host)")
+    check(r["ok"] and ks.get(NPN) == len(gold["ticks"]) * cfg_w.mpc.mpc_max_iter,
+          f"{label}: {r}, k-NN launches by k {ks}")
+    print(f"{label}: k-NN launches by k {ks}; {r['pairs']} pairs in missions {r['missions']}, mission equal "
+          f"{r['mission_equal']}, bf_status equal {r['bf_status_equal']}, is_safety agree {r['is_safety_agree']:.4f}, "
+          f"converged agree {r['converged_agree']:.4f}, max|du_cmd| {r['max_du_both_converged']:.3e} on the "
+          f"{r['n_both_converged']} both converged, next p {r['max_dp_near']:.3e} m, v {r['max_dv_near']:.3e} m/s where "
+          f"|du_cmd| <= 1e-3 ({r['u_near_share']:.4f} of pairs), depth hit agree {r['depth_hit_agree']:.6f}; "
+          f"ok={r['ok']}", flush=True)
+
+    # (c) the single robot's culled association at k=5
+    mp = cfg.mpc
+    qs, pts, mask = knn_shapes.make_inputs(knn_shapes.ENGINE_SHAPES["single-robot rescue"][:3] + (NPN, "masked"), dev)
+    zero_launch_counts()
+    with record_calls() as log:
+        d_c, p_c, ovf = knn_culled(qs, pts, mask, NPN, mp.assoc_radius, mp.assoc_m_max)
+    torch.cuda.synchronize()
+    n_culled = launch_counts()["knn_topk"]
+    d_h, p_h, ovf_h = knn_culled(qs.cpu(), pts.cpu(), mask.cpu(), NPN, mp.assoc_radius, mp.assoc_m_max)
+    same = torch.equal(d_c.cpu(), d_h) and torch.equal(p_c.cpu(), p_h) and torch.equal(ovf.cpu(), ovf_h)
+    check(n_culled == 2 and dict(Counter(c[3] for c in log)) == {NPN: 2} and same,
+          f"phase 21 culled association: {n_culled} launches {[c[:4] for c in log]}, equal to the CPU's {same}")
+    print(f"phase 21 single robot's culled association (B=1, Q={qs.shape[1]}, P={pts.shape[1]}, k={NPN}, m_max "
+          f"{mp.assoc_m_max}): launches {n_culled} {[tuple(c[:4]) for c in log]}, overflow {bool(ovf.any())}, equal "
+          f"to the CPU's {same}; phase 21 in {time.perf_counter() - t21:.1f} s", flush=True)
+    return {"engine_p50": ticks_ms[NPN_TICKS // 2]}
+
+
 def main() -> int:
     import torch
 
@@ -2431,9 +2681,19 @@ def main() -> int:
         if "knn_topk_kernel" in line and "Compiling entry function" in line:
             print("phase 1 ptxas " + " | ".join(x.strip() for x in ptxas[i:i + 4] if x.strip()), flush=True)
     knn_res = [r for r in cuda_build.resources("knn") if "knn_topk_kernel" in r["kernel"]]
-    check(len(knn_res) == len(knn_cuda._K_SUPPORTED)
-          and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in knn_res),
-          f"knn_topk_kernel spills or is missing from the ptxas report: {knn_res}")
+    knn_reg = [r for r in knn_res if "knn_topk_kernelILi" in r["kernel"]]  # the register instances
+    knn_dyn = [r for r in knn_res if "knn_topk_kernel_smem" in r["kernel"]]
+    check(len(knn_reg) == knn_cuda.REG_MAX_K
+          and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 for r in knn_reg),
+          f"a knn_topk_kernel register instance spills, or one of k 1 to {knn_cuda.REG_MAX_K} is missing from "
+          f"the ptxas report: {knn_reg}")
+    check(len(knn_dyn) == 1, f"knn_topk_kernel_smem is missing from the ptxas report: {knn_res}")
+    print(f"phase 1 knn: {len(knn_reg)} register instances (k 1 to {knn_cuda.REG_MAX_K}) at "
+          f"{min(r.get('registers', 0) for r in knn_reg)} to {max(r.get('registers', 0) for r in knn_reg)} registers, "
+          f"spill stores {sum(r.get('spill_stores', 0) for r in knn_reg)} B; the runtime-k kernel (k above "
+          f"{knn_cuda.REG_MAX_K}): " + "; ".join(f"{r.get('registers')} registers, {r.get('stack')} B stack, "
+                                                  f"{r.get('spill_stores')}/{r.get('spill_loads')} B spill st/ld"
+                                                  for r in knn_dyn), flush=True)
     sqp_geo = sqp_cuda.launch_geometry(B, N_HORIZON, K_NN, 8)
     for mod, geo in (("sweep", backward_cuda.launch_geometry(B, N_HORIZON)),
                      ("line search", forward_cuda.launch_geometry(B, N_HORIZON, K_NN, 8)),
@@ -2490,7 +2750,8 @@ def main() -> int:
           f"{bound_ms(0, knn_ops, F32_INSTR_PER_S)[0]:.4f} ms for {knn_ops / 1e9:.3f} G non-FMA instructions)",
           flush=True)
     edge_knn_err, knn_edge_ms, knn_edge_bounds = knn_edge_shapes(dev)
-    knn_err = max(knn_err, edge_knn_err)
+    count_err, knn_k_ms, knn_k_bounds = knn_counts_phase(q, pts2, mask2, pts, mask)
+    knn_err = max(knn_err, edge_knn_err, count_err)
 
     # ---- 3. SQP kernel vs plain on the flagship batch ----
     _, obstacles = knn_topk(q, pts, mask, K_NN)
@@ -2581,7 +2842,12 @@ def main() -> int:
     q_in = ref_in[..., 0:3].contiguous()
     _, obs_in = knn_topk(q_in, pts, mask, K_NN)
     prob_in = MPCProblem(x0, ref_in.contiguous(), obs_in, target)
-    knn_ms = kernel_ms(lambda: knn_topk(q_in, pts, mask, K_NN), "knn_topk", reps=20)
+    # the median of three sessions: in this process a session now and then
+    # reads every k-NN record at half its length (0.0365 ms against 0.0736;
+    # PERF.md section 7), and phase 20a holds this time against a fresh
+    # process's trace
+    knn_ms = statistics.median(kernel_ms(lambda: knn_topk(q_in, pts, mask, K_NN), "knn_topk", reps=20)
+                               for _ in range(3))
     knn_plain_ms = cuda_ms(lambda: knn_plain(q_in, pts, mask, K_NN), reps=5)
     cdist_in = torch.cdist(q_in, pts, compute_mode="donot_use_mm_for_euclid_dist")
     knn_cdist_ms = cuda_ms(lambda: torch.cdist(q_in, pts, compute_mode="donot_use_mm_for_euclid_dist"), reps=5)
@@ -2793,7 +3059,10 @@ def main() -> int:
     fixed = probes["roofline"]["kernels"]["sqp_solve"]
     fixed_at = f"fixed {probes['roofline']['sqp_iters']}-iteration budget, grad_tol 0 (B={B}, N={N_HORIZON})"
 
-    # ---- 21. kernels ----
+    # ---- 21. nearest_point_num 5 through the entry points ----
+    nearest_points_phase(dev, forest["tick"])
+
+    # ---- 22. kernels ----
     kernels = [
         {"name": "knn_topk", "route": "cuda", "source": "avoid_mpc_torch/csrc/knn.cu",
          "replaces": "avoid_mpc_tpu/ops/pallas_knn.py:113", "launches": launches["knn_topk"],
@@ -2801,8 +3070,10 @@ def main() -> int:
          "bound_by": knn_by, "library_ms": knn_lib_ms,
          "library_call": "torch.cdist(donot_use_mm_for_euclid_dist)+torch.topk, two calls, mask not applied",
          "library_parts_ms": {"cdist": knn_cdist_ms, "topk": knn_topk_lib_ms},
-         "ms_at": {**knn_edge_ms, "scale-out point shard (B=1, Q=4096, P=4096, k=3)": scale["shard_ms"]},
+         "ms_at": {**knn_edge_ms, "scale-out point shard (B=1, Q=4096, P=4096, k=3)": scale["shard_ms"],
+                   **{f"flagship k={k}": ms for k, ms in knn_k_ms.items()}},
          "bounds_at": {**{n: {"bound_ms": ms, "bound_by": by} for n, (ms, by) in knn_edge_bounds.items()},
+                       **{f"flagship k={k}": {"bound_ms": ms, "bound_by": by} for k, (ms, by) in knn_k_bounds.items()},
                        "scale-out point shard (B=1, Q=4096, P=4096, k=3)": {
                            "bound_ms": scale["shard_bound"], "bound_by": scale["shard_by"],
                            "plain_ms": scale["shard_plain_ms"], "library_ms": scale["shard_lib_ms"]},

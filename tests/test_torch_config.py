@@ -45,3 +45,13 @@ def test_engine_fields_present():
     for f in ("mpc_max_iter", "safety_distance", "speed", "ttc_threshold", "decay", "con_dt",
               "slow_down_kp", "slow_down_kd", "assoc_radius", "assoc_m_max"):
         assert f in names, f
+
+
+def test_weights_from_vector_equals_jax():
+    w = np.random.default_rng(3).uniform(0.0, 100.0, tconfig.WEIGHTS_DIM)
+    got, want = tconfig.MPCWeights.from_vector(w), jconfig.MPCWeights.from_vector(w)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.collide_lambda_omni == 0.0
+    np.testing.assert_array_equal(got.as_vector(), w)
+    with pytest.raises(ValueError):
+        tconfig.MPCWeights.from_vector(w[:-1])

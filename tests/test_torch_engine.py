@@ -33,9 +33,10 @@ from avoid_mpc_torch.engine import receding as tr
 ATOL = 1e-6
 
 
-def _cfg(mod, task="forward"):
+def _cfg(mod, task="forward", nearest_point_count=3):
     return mod.EngineConfig(
-        mpc=dataclasses.replace(mod.MPCConfig(), mpc_T=0.33, sqp_iters=8, sqp_iters_fast=5, speed=5.0),
+        mpc=dataclasses.replace(mod.MPCConfig(), mpc_T=0.33, sqp_iters=8, sqp_iters_fast=5, speed=5.0,
+                                nearest_point_count=nearest_point_count),
         task=mod.TaskConfig(task=task, height=1.5, goal_x=500.0),
     )
 
@@ -104,17 +105,16 @@ def assert_tick_equal(jout, jstate, tout, tstate, batched=True):
     np.testing.assert_array_equal(tout.obstacles.numpy(), lead(jout.obstacles))
 
 
-@pytest.fixture(scope="module")
-def batch_case():
+def jax_batch_ticks(cfg, jp, jh):
     """Four scenarios: a wall ahead with edges, a wall without, an empty map,
     far points; three chained JAX vmapped ticks, the quad moved by the plant."""
     w, border = wall()
     maps = stack([jax_map(w, border), jax_map(w + [1.0, 0.3, 0.0]), jrm.map_init(SHAPE, dtype=jnp.float64),
                   jax_map(np.array([[50.0, 20.0, 1.5]]))])
     quads = jnp.asarray(np.stack([hover(vx=2.0), hover(0.5, vx=3.0), hover(), hover(1.0, 1.4)]))
-    state = stack([jr.engine_init(J_CFG, dtype=jnp.float64)] * 4)
-    tick = jax.jit(jax.vmap(lambda s, q, m: jr.receding_step(s, q, m, JP, JH)))
-    plant = jax.jit(jax.vmap(lambda q, u: rk4_step(q, u, J_CFG.mpc.con_dt, DP)))
+    state = stack([jr.engine_init(cfg, dtype=jnp.float64)] * 4)
+    tick = jax.jit(jax.vmap(lambda s, q, m: jr.receding_step(s, q, m, jp, jh)))
+    plant = jax.jit(jax.vmap(lambda q, u: rk4_step(q, u, cfg.mpc.con_dt, DP)))
     ticks = []
     for _ in range(3):
         new_state, out = tick(state, quads, maps)
@@ -123,13 +123,35 @@ def batch_case():
     return maps, ticks
 
 
-def test_chained_ticks_equal_jax_vmapped(batch_case):
-    maps, ticks = batch_case
+@pytest.fixture(scope="module")
+def batch_case():
+    return jax_batch_ticks(J_CFG, JP, JH)
+
+
+def check_chained_ticks(maps, ticks, tp, th):
     tstate, tmap = to_port(ticks[0][0], maps)
     for _, quads, jout, jstate in ticks:
-        tstate, tout = tr.receding_step(tstate, torch.as_tensor(np.array(quads)), tmap, TP, TH)
+        tstate, tout = tr.receding_step(tstate, torch.as_tensor(np.array(quads)), tmap, tp, th)
         assert_tick_equal(jout, jstate, tout, tstate)
+    return tout
+
+
+def test_chained_ticks_equal_jax_vmapped(batch_case):
+    tout = check_chained_ticks(*batch_case, TP, TH)
     assert tout.converged.dtype == torch.bool and tout.cost.shape == (4,)
+
+
+def test_chained_ticks_equal_jax_at_five_nearest_points():
+    """A config's nearest_point_num of 5: five obstacles per node from the
+    association, through the solve, against the JAX vmapped tick."""
+    j_cfg, t_cfg = _cfg(jconfig, nearest_point_count=5), _cfg(tconfig, nearest_point_count=5)
+    maps, ticks = jax_batch_ticks(j_cfg, jr.EngineParams.from_config(j_cfg, dtype=jnp.float64),
+                                  jr.EngineHyper.from_config(j_cfg))
+    th = tr.EngineHyper.from_config(t_cfg)
+    assert th.k == 5 and ticks[-1][2].obstacles.shape == (4, N, 5, 3)
+    tout = check_chained_ticks(maps, ticks, tr.EngineParams.from_config(t_cfg, dtype=torch.float64, device="cpu"), th)
+    assert tout.obstacles.shape == (4, N, 5, 3)
+    assert (tout.obstacles[0, :, :, 0] < 1e4).all()  # the wall fills all five slots of scenario 0
 
 
 def test_chained_ticks_equal_jax_unbatched(batch_case):

@@ -1,9 +1,12 @@
-"""The port's k-NN (plain PyTorch, CPU) vs the JAX package's XLA k-NN.
+"""The port's k-NN (plain PyTorch, CPU) vs the JAX package's XLA k-NN,
+and at nearest-point counts other than the defaults (k = 5, 8) vs the JAX
+Pallas kernel in interpret mode too.
 
 Distances match to 1e-12 relative in f64 and 1e-6 in f32: XLA on the CPU
-may contract or reorder the three-term sum, so bit-identity is required only
-of the CUDA kernel against its plain twin on the card (chip_smoke.py).
-Coordinates must be equal wherever the distance is not tied.
+(the Pallas kernel's interpret mode included) may contract or reorder the
+three-term sum, so bit-identity is required only of the CUDA kernel against
+its plain twin on the card (chip_smoke.py).  Coordinates must be equal
+wherever the distance is not tied.
 """
 
 import importlib
@@ -15,6 +18,7 @@ import pytest
 import torch
 
 from avoid_mpc_torch.ops.knn_cuda import knn_topk
+from avoid_mpc_tpu.ops.pallas_knn import knn_pallas_batched
 
 # the module (the JAX package's ops/__init__ re-exports the function as `knn`)
 jknn = importlib.import_module("avoid_mpc_tpu.ops.knn")
@@ -68,6 +72,23 @@ def test_knn_matches_jax(dtype, rtol, shape):
     got = tknn.knn(torch.as_tensor(queries), torch.as_tensor(points), torch.as_tensor(mask), k)
     _assert_match(got, want, rtol)
     assert np.isinf(got[0][0, :, k - 1].numpy()).all()  # fewer than k valid points
+
+
+@pytest.mark.parametrize("k", [5, 8])
+def test_knn_matches_jax_and_pallas_at_other_counts(k):
+    """A config's nearest_point_num of 5 or 8: the plain k-NN against the
+    XLA k-NN in f64 and f32, and against the TPU kernel (interpret mode,
+    two point chunks of 128) in f32; one scenario has fewer than k valid
+    points, one duplicated points."""
+    b, q, p = 2, 2, 200
+    q64, p64, mask = _case(np.random.default_rng(k), b, q, p, k)
+    _assert_match(tknn.knn(*(torch.as_tensor(a) for a in (q64, p64, mask)), k), _jax_knn(q64, p64, mask, k), 1e-12)
+    q32, p32 = q64.astype(np.float32), p64.astype(np.float32)
+    got = tknn.knn(torch.as_tensor(q32), torch.as_tensor(p32), torch.as_tensor(mask), k)
+    _assert_match(got, _jax_knn(q32, p32, mask, k), 1e-6)
+    want = knn_pallas_batched(jnp.asarray(q32), jnp.asarray(p32), jnp.asarray(mask), k=k, chunk=128, interpret=True)
+    _assert_match(got, tuple(np.asarray(a) for a in want), 1e-6)
+    assert np.isinf(got[0][0, :, k - 1].numpy()).all() and np.isfinite(got[0][1].numpy()).all()
 
 
 def test_knn_ties_go_to_lower_index():

@@ -11,7 +11,11 @@ every scenario, query and point once with its own mapping):
 - shared memory stays within the 232,448 bytes an H100 block may use for
   every P up to the brute-force rescue's 307,200;
 - the map's dedupe shape (B=1, Q=3072, P=3072, k=1) launches at least one
-  block per SM (132).
+  block per SM (132);
+- every k from 1 to 64 launches at the callers' shapes (the register
+  instances up to ``REG_MAX_K``, the runtime-k kernel above), with the
+  shared bytes of ``csrc/knn.cu``'s formula, and a k whose lists do not fit
+  a block raises a ``ValueError`` that names the limit.
 
 ``kernel_order_model`` follows the kernel's slices, ranges and
 merges in plain PyTorch; it must equal ``knn_plain`` bit for bit on inputs
@@ -110,7 +114,7 @@ def test_rescue_shape_splits_the_points():
 
 
 @pytest.mark.parametrize("args", [(0, 20, 1024, 3), (4, 0, 1024, 3), (4, 20, -1, 3), (4, 20, 1024, 0),
-                                  (4, 20, 1024, 5)])
+                                  (4, 20, 1024, 256)])
 def test_rejects_shapes_the_kernel_does_not_take(args):
     with pytest.raises(ValueError):
         knn_cuda.launch_geometry(*args)
@@ -121,7 +125,49 @@ def test_constants_match_the_source():
     defines = dict(re.findall(r"^#define (\w+) (\S+)", src, flags=re.M))
     assert int(defines["KNN_MAX_THREADS"]) == knn_cuda.MAX_THREADS
     assert int(defines["KNN_MAX_RANGE"]) == knn_cuda.MAX_RANGE
+    assert int(defines["KNN_REG_MAX_K"]) == knn_cuda.REG_MAX_K
+    assert MAX_SHARED - int(defines["KNN_STATIC_SMEM"]) == knn_cuda.MAX_SHARED
+    assert f"#define KNN_MAX_SHARED ({MAX_SHARED} - KNN_STATIC_SMEM)" in src
     assert "20L * threads * k + 16L * qpb * k" in src and "16L * range_pts" in src  # shared_bytes
+    assert "if (k > KNN_REG_MAX_K) return tile + 8L * threads * k;" in src
+    # one register instance for every k up to KNN_REG_MAX_K
+    cases = re.findall(r"KNN_CASE\((\d+)\)", src)
+    assert sorted(map(int, cases)) == list(range(1, knn_cuda.REG_MAX_K + 1))
+
+
+def _knn_cu_shared_bytes(threads, qpb, k, range_pts):
+    """``csrc/knn.cu::knn_smem_bytes``, written out again."""
+    tile = 16 * range_pts
+    if k > 16:
+        return tile + 8 * threads * k  # the tile and every thread's (d2, index) list
+    return max(tile, 20 * threads * k + 16 * qpb * k)  # the tile, then the merge lists and output staging
+
+
+# the callers' shapes: the flagship, forest_10k's association, the rescue
+# over the full map and the dedupe
+CALLER_SHAPES = [(4096, 20, 1024), (1024, 30, 10240), (1, 30, RESCUE_P), (1, 3072, 3072)]
+
+
+@pytest.mark.parametrize("b,q,p", CALLER_SHAPES)
+def test_every_k_up_to_64_launches(b, q, p):
+    for k in range(1, 65):
+        geo = knn_cuda.launch_geometry(b, q, p, k)
+        assert geo.shared_bytes == _knn_cu_shared_bytes(geo.threads, geo.queries_per_block, k, geo.range_points)
+        assert 0 < geo.shared_bytes <= knn_cuda.MAX_SHARED
+        # the geometry does not depend on k: the same blocks, ranges and slices as k=3
+        assert geo._replace(shared_bytes=0) == knn_cuda.launch_geometry(b, q, p, 3)._replace(shared_bytes=0)
+
+
+@pytest.mark.parametrize("b,q,p", CALLER_SHAPES)
+def test_k_beyond_the_shared_memory_limit_raises(b, q, p):
+    """The largest k that fits, and the next, which raises naming the limit."""
+    geo = knn_cuda.launch_geometry(b, q, p, 3)
+    k_max = max(k for k in range(1, 4096)
+                if _knn_cu_shared_bytes(geo.threads, geo.queries_per_block, k, geo.range_points) <= knn_cuda.MAX_SHARED)
+    assert k_max >= 64
+    assert knn_cuda.launch_geometry(b, q, p, k_max).shared_bytes <= knn_cuda.MAX_SHARED
+    with pytest.raises(ValueError, match=f"MAX_SHARED = {knn_cuda.MAX_SHARED} B"):
+        knn_cuda.launch_geometry(b, q, p, k_max + 1)
 
 
 # ---- the kernel's order of work against knn_plain ----
@@ -226,6 +272,22 @@ def test_k10_order_model_at_the_prune_layout(kind):
     d_m, p_m = knn_cuda.kernel_order_model(queries, points, mask, 10, geo)
     d_p, p_p = knn_plain(queries, points, mask, 10)
     assert torch.equal(d_m, d_p) and torch.equal(p_m, p_p)
+
+
+@pytest.mark.parametrize("k", [5, 11, 16, 17, 64])
+def test_kernel_order_model_at_any_k(k):
+    """k from the register instances' top (16) and the runtime-k kernel
+    (17, 64): slices and split ranges on tie-heavy inputs, one scenario with
+    fewer valid points than k, against knn_plain."""
+    b, q, p = 3, 6, 150
+    queries, points, mask = _lattice_case(k, b, q, p)
+    mask[0] = False
+    mask[0, [3, 77, 149][: min(3, k - 1)]] = True
+    geo = knn_cuda.launch_geometry(b, q, p, k)._replace(slices=4, splits=3, range_points=50)
+    d_m, p_m = knn_cuda.kernel_order_model(queries, points, mask, k, geo)
+    d_p, p_p = knn_plain(queries, points, mask, k)
+    assert torch.equal(d_m, d_p) and torch.equal(p_m, p_p)
+    assert torch.isinf(d_m[0, :, min(3, k - 1):]).all() and torch.isfinite(d_m[1:]).all()
 
 
 @pytest.mark.parametrize("what", ["all masked", "fewer than k", "no points"])

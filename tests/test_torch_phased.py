@@ -193,7 +193,7 @@ def test_line_search_plain_matches_jax_f64(n_alphas):
     check_line_search_plain_matches_jax(n_alphas, 3)
 
 
-@pytest.mark.parametrize("n_obs", [1, 4])
+@pytest.mark.parametrize("n_obs", [1, 4, 5])
 @pytest.mark.parametrize("n_alphas", [1, 12])
 def test_line_search_plain_matches_jax_f64_obstacle_counts(n_alphas, n_obs):
     check_line_search_plain_matches_jax(n_alphas, n_obs)
