@@ -44,6 +44,7 @@ from avoid_mpc_torch.device import resolve_device
 from avoid_mpc_torch.mapping.rolling_map import MapCloud, RollingMap, map_cloud
 from avoid_mpc_torch.ops.knn import knn, knn_culled, nearest_distance
 from avoid_mpc_torch.solver.ilqr import MPCProblem, SolverHyper, SolverParams, solve_batched
+from avoid_mpc_torch.utils.profiling import span
 
 TASK_FORWARD = 0
 TASK_GLOBAL_GOAL = 1
@@ -223,56 +224,68 @@ def _slow_down_cmd(quad_state, p: EngineParams):
 def receding_step(state: EngineState, quad_state, rolling_map: RollingMap, p: EngineParams,
                   h: EngineHyper) -> tuple[EngineState, StepOutput]:
     """One control tick for B scenarios: state (B, ...), quad_state (B, 10),
-    the map of each.  Returns the new state and the tick's outputs."""
-    quad_state = quad_state.contiguous()
-    pos = quad_state[:, 0:3]
-    state = _shift_horizon(state, pos, p, h)
-    obs, edge = map_cloud(rolling_map), map_cloud(rolling_map, edge=True)
-    nonempty = torch.any(obs.mask, dim=-1)
+    the map of each.  Returns the new state and the tick's outputs.
+    Spans: ``engine.prepare``; in each outer iteration ``engine.guard``
+    (the edge warm start), ``engine.assoc``, ``engine.solve`` and
+    ``engine.select``; then ``engine.ttc`` (with ``use_ttc``) and
+    ``engine.command``."""
+    with span("engine.prepare"):
+        quad_state = quad_state.contiguous()
+        pos = quad_state[:, 0:3]
+        state = _shift_horizon(state, pos, p, h)
+        obs, edge = map_cloud(rolling_map), map_cloud(rolling_map, edge=True)
+        nonempty = torch.any(obs.mask, dim=-1)
 
-    b, n, k = quad_state.shape[0], h.n, h.k
-    dt, dev = quad_state.dtype, quad_state.device
-    ref, us_warm = state.ref_path, state.us_warm
-    active = torch.ones(b, dtype=torch.bool, device=dev)
-    is_safety, need_replan = active.clone(), active.clone()
-    pred = torch.zeros((b, n + 1, STATE_DIM), dtype=dt, device=dev)
-    obstacles = torch.full((b, n, k, 3), 1e4, dtype=dt, device=dev)
-    cost = torch.full((b,), float("inf"), dtype=dt, device=dev)
-    converged = torch.zeros(b, dtype=torch.bool, device=dev)
-    ran = torch.zeros(b, dtype=torch.int64, device=dev)
+        b, n, k = quad_state.shape[0], h.n, h.k
+        dt, dev = quad_state.dtype, quad_state.device
+        ref, us_warm = state.ref_path, state.us_warm
+        active = torch.ones(b, dtype=torch.bool, device=dev)
+        is_safety, need_replan = active.clone(), active.clone()
+        pred = torch.zeros((b, n + 1, STATE_DIM), dtype=dt, device=dev)
+        obstacles = torch.full((b, n, k, 3), 1e4, dtype=dt, device=dev)
+        cost = torch.full((b,), float("inf"), dtype=dt, device=dev)
+        converged = torch.zeros(b, dtype=torch.bool, device=dev)
+        ran = torch.zeros(b, dtype=torch.int64, device=dev)
 
     for it in range(h.max_outer_iters):
-        ref_i, safety_i = _edge_warm_start(ref, obs, edge, p)
-        obstacles_i, replan_i = _associate_obstacles(ref_i, obs, nonempty, p, h)
-        stop_now = ~replan_i & safety_i & (it > 0)  # early exit: safe, associated, not the first
-        run = active & ~stop_now
-        problem = MPCProblem(x0=quad_state, ref=ref_i, obstacles=obstacles_i, target=_build_target(ref_i, pos, p))
-        res = solve_batched(problem, us_warm, p.sp, h.solver_fast if it == 0 else h.solver)
+        with span("engine.guard"):
+            ref_i, safety_i = _edge_warm_start(ref, obs, edge, p)
+        with span("engine.assoc"):
+            obstacles_i, replan_i = _associate_obstacles(ref_i, obs, nonempty, p, h)
+        with span("engine.solve"):
+            stop_now = ~replan_i & safety_i & (it > 0)  # early exit: safe, associated, not the first
+            run = active & ~stop_now
+            problem = MPCProblem(x0=quad_state, ref=ref_i, obstacles=obstacles_i,
+                                 target=_build_target(ref_i, pos, p))
+            res = solve_batched(problem, us_warm, p.sp, h.solver_fast if it == 0 else h.solver)
 
-        def sel(new, old):
-            return torch.where(run.reshape((b,) + (1,) * (old.dim() - 1)), new, old)
+        with span("engine.select"):
+            def sel(new, old):
+                return torch.where(run.reshape((b,) + (1,) * (old.dim() - 1)), new, old)
 
-        ref = sel(res.xs[:, :n], ref)  # the predicted nodes 0..N-1
-        us_warm = sel(res.us, us_warm)
-        is_safety = torch.where(active, safety_i, is_safety)
-        need_replan = torch.where(active, replan_i, need_replan)
-        active = active & ~stop_now
-        pred, obstacles = sel(res.xs, pred), sel(obstacles_i, obstacles)
-        cost, converged = sel(res.cost, cost), sel(res.converged, converged)
-        ran = ran + run.to(torch.int64)
+            ref = sel(res.xs[:, :n], ref)  # the predicted nodes 0..N-1
+            us_warm = sel(res.us, us_warm)
+            is_safety = torch.where(active, safety_i, is_safety)
+            need_replan = torch.where(active, replan_i, need_replan)
+            active = active & ~stop_now
+            pred, obstacles = sel(res.xs, pred), sel(obstacles_i, obstacles)
+            cost, converged = sel(res.cost, cost), sel(res.converged, converged)
+            ran = ran + run.to(torch.int64)
 
     if h.use_ttc:
-        # time to collision toward the current 1-NN obstacle below the
-        # threshold forces the slow-down command even with a safe plan
-        d1, pt1 = knn(pos[:, None].contiguous(), obs.points, obs.mask, 1)
-        vec = pt1[:, 0, 0] - pos
-        dist1 = torch.clamp_min(d1[:, 0, 0], 1e-6)
-        closing = torch.sum(quad_state[:, 4:7] * (vec / dist1[:, None]), dim=-1)
-        ttc = (dist1 - p.sp.cost.drone_radius) / torch.clamp_min(closing, 1e-3)
-        trigger = (p.ttc_threshold > 0.0) & (closing > 0.0) & torch.isfinite(dist1) & (ttc < p.ttc_threshold)
-        is_safety = is_safety & ~trigger
+        with span("engine.ttc"):
+            # time to collision toward the current 1-NN obstacle below the
+            # threshold forces the slow-down command even with a safe plan
+            d1, pt1 = knn(pos[:, None].contiguous(), obs.points, obs.mask, 1)
+            vec = pt1[:, 0, 0] - pos
+            dist1 = torch.clamp_min(d1[:, 0, 0], 1e-6)
+            closing = torch.sum(quad_state[:, 4:7] * (vec / dist1[:, None]), dim=-1)
+            ttc = (dist1 - p.sp.cost.drone_radius) / torch.clamp_min(closing, 1e-3)
+            trigger = (p.ttc_threshold > 0.0) & (closing > 0.0) & torch.isfinite(dist1) & (ttc < p.ttc_threshold)
+            is_safety = is_safety & ~trigger
 
-    u_cmd = torch.where(is_safety[:, None], us_warm[:, 0], _slow_down_cmd(quad_state, p))
-    new_state = EngineState(ref_path=ref, us_warm=us_warm, goal=state.goal)
-    return new_state, StepOutput(u_cmd=u_cmd, is_safety=is_safety, need_replan=need_replan, predicted=pred,
-                                 obstacles=obstacles, cost=cost, outer_iters=ran, converged=converged)
+    with span("engine.command"):
+        u_cmd = torch.where(is_safety[:, None], us_warm[:, 0], _slow_down_cmd(quad_state, p))
+        new_state = EngineState(ref_path=ref, us_warm=us_warm, goal=state.goal)
+        return new_state, StepOutput(u_cmd=u_cmd, is_safety=is_safety, need_replan=need_replan, predicted=pred,
+                                     obstacles=obstacles, cost=cost, outer_iters=ran, converged=converged)

@@ -24,7 +24,6 @@ plain PyTorch, which the CPU tests hold equal to :func:`knn_plain`.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import NamedTuple
 
@@ -244,23 +243,7 @@ def knn_topk(queries: torch.Tensor, points: torch.Tensor, mask: torch.Tensor, k:
     if err != 0:
         raise RuntimeError(f"knn_topk: kernel launch failed with CUDA error {err}")
     knn_topk.launches += 1
-    if _call_log is not None:
-        _call_log.append((b, q, p, k, mask.sum()))
     return dists, pts
 
 
 knn_topk.launches = 0
-_call_log: list | None = None
-
-
-@contextlib.contextmanager
-def record_calls():
-    """Collect, for every launch in the block, (B, Q, P, k, valid points as
-    a 0-dim device tensor): what ``tools/roofline.knn_counts`` needs to
-    bound the calls a caller made.  Nothing is read back here."""
-    global _call_log
-    _call_log = log = []
-    try:
-        yield log
-    finally:
-        _call_log = None

@@ -22,6 +22,7 @@ from avoid_mpc_torch.mapping.rolling_map import map_add_frame, map_init, map_key
 from avoid_mpc_torch.ops.depth import process_depth_frame
 from avoid_mpc_torch.sim.sensors import ObstacleField
 from avoid_mpc_torch.sim.world import MISSION_TASK, WorldHyper, WorldParams, world_init, world_step_full
+from avoid_mpc_torch.utils.profiling import span
 from avoid_mpc_torch.utils.quaternion import compose_tf
 from avoid_mpc_torch.utils.tree import select_where
 
@@ -56,19 +57,21 @@ def record_flight(cfg: EngineConfig, params: WorldParams, hyper: WorldHyper, fie
 
 def replay(log: FlightLog, cfg: EngineConfig, params: WorldParams, hyper: WorldHyper):
     """Re-drive perception, the map and the engine on the logged stream
-    (open loop).  Returns (u_cmd (B, T, 4), is_safety (B, T))."""
-    b, n_ticks = log.mission.shape
-    dtype, dev = log.x_pred.dtype, log.x_pred.device
-    m = map_init(hyper.map_shape, batch=b, dtype=dtype, device=dev)
-    e = engine_init(cfg, batch=b, dtype=dtype, device=dev)
-    u_cmd, is_safety = [], []
-    for i in range(n_ticks):
-        Twb = log.Twb[:, i]
-        frame = process_depth_frame(log.depth[:, i], Twb, params.cam)
-        m = map_add_frame(m, *frame, compose_tf(Twb, params.Tbc))
-        m = map_keyframe_update(m, params.Tbc, params.depth_min, params.dedupe_dist, params.dedupe_count)
-        e_new, out = receding_step(e, log.x_pred[:, i], m, params.engine, hyper.engine)
-        e = select_where(log.mission[:, i] == MISSION_TASK, e_new, e)
-        u_cmd.append(out.u_cmd)
-        is_safety.append(out.is_safety)
-    return torch.stack(u_cmd, dim=1), torch.stack(is_safety, dim=1)
+    (open loop).  Returns (u_cmd (B, T, 4), is_safety (B, T)).  Span:
+    ``replay``."""
+    with span("replay"):
+        b, n_ticks = log.mission.shape
+        dtype, dev = log.x_pred.dtype, log.x_pred.device
+        m = map_init(hyper.map_shape, batch=b, dtype=dtype, device=dev)
+        e = engine_init(cfg, batch=b, dtype=dtype, device=dev)
+        u_cmd, is_safety = [], []
+        for i in range(n_ticks):
+            Twb = log.Twb[:, i]
+            frame = process_depth_frame(log.depth[:, i], Twb, params.cam)
+            m = map_add_frame(m, *frame, compose_tf(Twb, params.Tbc))
+            m = map_keyframe_update(m, params.Tbc, params.depth_min, params.dedupe_dist, params.dedupe_count)
+            e_new, out = receding_step(e, log.x_pred[:, i], m, params.engine, hyper.engine)
+            e = select_where(log.mission[:, i] == MISSION_TASK, e_new, e)
+            u_cmd.append(out.u_cmd)
+            is_safety.append(out.is_safety)
+        return torch.stack(u_cmd, dim=1), torch.stack(is_safety, dim=1)

@@ -49,6 +49,7 @@ from avoid_mpc_torch.ops.depth import CameraModel, process_depth_frame
 from avoid_mpc_torch.sim.plant import SixDofParams, SixDofState, sixdof_init, sixdof_step, sixdof_to_mpc_state
 from avoid_mpc_torch.sim.sensors import CameraRig, ImuParams, ObstacleField, imu_measure, render_depth, render_rig
 from avoid_mpc_torch.utils.filters import COGFilterState, cog_filter_init, cog_filter_update
+from avoid_mpc_torch.utils.profiling import span
 from avoid_mpc_torch.utils.quaternion import compose_tf, quat_rotate, quat_to_rotmat, rigid_transform, rotate_transposed
 from avoid_mpc_torch.utils.tree import select_where
 
@@ -191,22 +192,21 @@ def field_clearance(p: torch.Tensor, field: ObstacleField) -> torch.Tensor:
 
 
 def world_step(ws: WorldState, field: ObstacleField, params: WorldParams, hyper: WorldHyper,
-               generator: torch.Generator | None = None, mark=None) -> tuple[WorldState, WorldDiag]:
-    ws, diag, *_ = world_step_full(ws, field, params, hyper, generator, mark)
+               generator: torch.Generator | None = None) -> tuple[WorldState, WorldDiag]:
+    ws, diag, *_ = world_step_full(ws, field, params, hyper, generator)
     return ws, diag
 
 
 def world_step_full(ws: WorldState, field: ObstacleField, params: WorldParams, hyper: WorldHyper,
-                    generator: torch.Generator | None = None, mark=None):
+                    generator: torch.Generator | None = None):
     """:func:`world_step` that also returns the tick's sensor products:
     (state, diag, depth (B, h, w), Twb (B, 4, 4), x_pred (B, 10), the
     stereo and bottom frames or None) — the capture surface of flight
     recording and replay.  ``generator`` draws the depth noise
     (``use_depth_noise``) and the IMU noise (``use_imu_estimation``).
-    ``mark``, if given, is called with each stage's name as the stage's
-    work has been issued: "render", "depth", "map", "engine" and
-    "control + plant" (a profiler's stage boundaries)."""
-    mark = mark or (lambda stage: None)
+    Spans, one per stage: ``render``, ``perception``, ``mapping``,
+    ``engine`` (the mission FSM, the state prediction and the engine) and
+    ``control`` (bfctrl and the plant)."""
     if (hyper.use_depth_noise or hyper.use_imu_estimation) and generator is None:
         raise ValueError("world_step: depth or IMU noise needs a torch.Generator on the world's device")
     plant = ws.plant
@@ -214,84 +214,85 @@ def world_step_full(ws: WorldState, field: ObstacleField, params: WorldParams, h
     t = ws.t + params.con_dt
 
     # --- 1 + 2: perception into the rolling map ---
-    x_true = sixdof_to_mpc_state(plant)
-    cog, imu_bias = ws.cog, ws.imu_bias
-    if hyper.use_imu_estimation:
-        accel_b, _gyro, imu_bias = imu_measure(plant.q, plant.a_lin, plant.w, ws.imu_bias, params.con_dt,
-                                               params.imu, generator)
-        cog, acc_filt_b = cog_filter_update(ws.cog, accel_b)
-        acc_est = quat_rotate(plant.q, acc_filt_b)
-        x_true = torch.cat([x_true[:, :7], acc_est[:, :2], acc_est[:, 2:] - GRAVITY], dim=-1)
-    R_wb = quat_to_rotmat(plant.q)
-    Twb = rigid_transform(R_wb, plant.p)
-    Twc = compose_tf(Twb, params.Tbc)
-    noise = generator if hyper.use_depth_noise else None
-    depth = render_depth(Twc, field, hyper.pcfg, hyper.render_h, hyper.render_w, noise)
-    aux = None
-    if hyper.capture_stereo_bottom:
-        aux = render_rig(Twb, params.rig, field, hyper.pcfg, hyper.render_h, hyper.render_w, noise)
-    mark("render")
-    if hyper.only_trust_vel:
-        # the drone-local frame: depth rendered from the true pose,
-        # back-projected through the dead-reckoned one; no keyframes
-        p_est = x_true[:, 4:7] * params.con_dt + 0.5 * x_true[:, 7:10] * params.con_dt ** 2
-        x_true = torch.cat([p_est, x_true[:, 3:]], dim=-1)
-        Twb_est = rigid_transform(R_wb, p_est)
-        frame = process_depth_frame(depth, Twb_est, params.cam)
-        mark("depth")
-        m = map_add_frame(ws.map, *frame, compose_tf(Twb_est, params.Tbc))
-    else:
-        frame = process_depth_frame(depth, Twb, params.cam)
-        mark("depth")
-        m = map_add_frame(ws.map, *frame, Twc)
-        m = map_keyframe_update(m, params.Tbc, params.depth_min, params.dedupe_dist, params.dedupe_count)
-    mark("map")
+    with span("render"):
+        x_true = sixdof_to_mpc_state(plant)
+        cog, imu_bias = ws.cog, ws.imu_bias
+        if hyper.use_imu_estimation:
+            accel_b, _gyro, imu_bias = imu_measure(plant.q, plant.a_lin, plant.w, ws.imu_bias, params.con_dt,
+                                                   params.imu, generator)
+            cog, acc_filt_b = cog_filter_update(ws.cog, accel_b)
+            acc_est = quat_rotate(plant.q, acc_filt_b)
+            x_true = torch.cat([x_true[:, :7], acc_est[:, :2], acc_est[:, 2:] - GRAVITY], dim=-1)
+        R_wb = quat_to_rotmat(plant.q)
+        Twb = rigid_transform(R_wb, plant.p)
+        Twc = compose_tf(Twb, params.Tbc)
+        noise = generator if hyper.use_depth_noise else None
+        depth = render_depth(Twc, field, hyper.pcfg, hyper.render_h, hyper.render_w, noise)
+        aux = None
+        if hyper.capture_stereo_bottom:
+            aux = render_rig(Twb, params.rig, field, hyper.pcfg, hyper.render_h, hyper.render_w, noise)
+    with span("perception"):
+        if hyper.only_trust_vel:
+            # the drone-local frame: depth rendered from the true pose,
+            # back-projected through the dead-reckoned one; no keyframes
+            p_est = x_true[:, 4:7] * params.con_dt + 0.5 * x_true[:, 7:10] * params.con_dt ** 2
+            x_true = torch.cat([p_est, x_true[:, 3:]], dim=-1)
+            Twb_est = rigid_transform(R_wb, p_est)
+            frame = process_depth_frame(depth, Twb_est, params.cam)
+        else:
+            frame = process_depth_frame(depth, Twb, params.cam)
+    with span("mapping"):
+        if hyper.only_trust_vel:
+            m = map_add_frame(ws.map, *frame, compose_tf(Twb_est, params.Tbc))
+        else:
+            m = map_add_frame(ws.map, *frame, Twc)
+            m = map_keyframe_update(m, params.Tbc, params.depth_min, params.dedupe_dist, params.dedupe_count)
 
     # --- 3: the mission FSM ---
-    bf_waiting = (ws.ctrl.fsm == FSM_AUTO_HOVER) | (ws.ctrl.fsm == FSM_CMD_CTRL)
-    mission = ws.mission
-    mission = torch.where(mission == MISSION_INIT, MISSION_WAIT, mission)
-    mission = torch.where((mission == MISSION_WAIT) & bf_waiting, MISSION_TAKEOFF, mission)
-    reached = plant.p[:, 2] >= 0.6 * params.height
-    mission = torch.where((mission == MISSION_TAKEOFF) & reached, MISSION_TASK, mission)
-    # the goal reached ends the task (the reference declares LAND but never
-    # enters it; the JAX package's extension)
-    at_goal = plant.p[:, 0] >= params.engine.farthest_x - 0.5
-    mission = torch.where((mission == MISSION_TASK) & at_goal, MISSION_LAND, mission)
+    with span("engine"):
+        bf_waiting = (ws.ctrl.fsm == FSM_AUTO_HOVER) | (ws.ctrl.fsm == FSM_CMD_CTRL)
+        mission = ws.mission
+        mission = torch.where(mission == MISSION_INIT, MISSION_WAIT, mission)
+        mission = torch.where((mission == MISSION_WAIT) & bf_waiting, MISSION_TAKEOFF, mission)
+        reached = plant.p[:, 2] >= 0.6 * params.height
+        mission = torch.where((mission == MISSION_TAKEOFF) & reached, MISSION_TASK, mission)
+        # the goal reached ends the task (the reference declares LAND but never
+        # enters it; the JAX package's extension)
+        at_goal = plant.p[:, 0] >= params.engine.farthest_x - 0.5
+        mission = torch.where((mission == MISSION_TASK) & at_goal, MISSION_LAND, mission)
 
-    # the latency-compensated state prediction
-    d = params.decay
-    v, a = x_true[:, 4:7], x_true[:, 7:10]
-    x_pred = torch.cat([x_true[:, 0:3] + (v * d + 0.5 * a * d * d), x_true[:, 3:4], v + a * d, a], dim=-1)
+        # the latency-compensated state prediction
+        d = params.decay
+        v, a = x_true[:, 4:7], x_true[:, 7:10]
+        x_pred = torch.cat([x_true[:, 0:3] + (v * d + 0.5 * a * d * d), x_true[:, 3:4], v + a * d, a], dim=-1)
 
-    # --- 4: the engine, every tick; its state kept in TASK only ---
-    engine_new, out = receding_step(ws.engine, x_pred, m, params.engine, hyper.engine)
-    in_task = mission == MISSION_TASK
-    engine_state = select_where(in_task, engine_new, ws.engine)
-    mark("engine")
+        # --- 4: the engine, every tick; its state kept in TASK only ---
+        engine_new, out = receding_step(ws.engine, x_pred, m, params.engine, hyper.engine)
+        in_task = mission == MISSION_TASK
+        engine_state = select_where(in_task, engine_new, ws.engine)
 
-    z3 = torch.zeros((b, 3), dtype=dtype, device=dev)
-    zero = torch.zeros(b, dtype=dtype, device=dev)
-    unit_q = torch.cat([torch.ones((b, 1), dtype=dtype, device=dev), z3], dim=-1)
-    cmd = CommandInput(
-        mode=torch.full((b,), CMD_ACCELERATION, dtype=torch.int64, device=dev), p=z3, v=z3, a=out.u_cmd[:, 0:3],
-        w=z3, q=unit_q, yaw=zero, yaw_rate=out.u_cmd[:, 3], thrust=zero,
-        age=torch.where(in_task, 0.0, torch.inf).to(dtype),
-    )
+    with span("control"):
+        z3 = torch.zeros((b, 3), dtype=dtype, device=dev)
+        zero = torch.zeros(b, dtype=dtype, device=dev)
+        unit_q = torch.cat([torch.ones((b, 1), dtype=dtype, device=dev), z3], dim=-1)
+        cmd = CommandInput(
+            mode=torch.full((b,), CMD_ACCELERATION, dtype=torch.int64, device=dev), p=z3, v=z3, a=out.u_cmd[:, 0:3],
+            w=z3, q=unit_q, yaw=zero, yaw_rate=out.u_cmd[:, 3], thrust=zero,
+            age=torch.where(in_task, 0.0, torch.inf).to(dtype),
+        )
 
-    # --- 5: bfctrl, fed the IMU body specific force and last tick's
-    # applied throttle (the thrust RLS's regressors) ---
-    spec_f = torch.cat([plant.a_lin[:, :2], plant.a_lin[:, 2:] + GRAVITY], dim=-1)
-    accel_body = rotate_transposed(R_wb, spec_f)
-    ctrl_new, u, _des, status, hover_pct = bfctrl_step(
-        ws.ctrl, t, plant.p, plant.v, plant.q, cmd, torch.where(mission == MISSION_LAND, LAND_CMD, 0), zero,
-        torch.full((b,), torch.inf, dtype=dtype, device=dev), torch.zeros((b, 2), dtype=dtype, device=dev),
-        params.bfctrl, imu_a=accel_body, vfr=VfrHudInput(throttle=ws.prev_thrust, age=zero),
-    )
+        # --- 5: bfctrl, fed the IMU body specific force and last tick's
+        # applied throttle (the thrust RLS's regressors) ---
+        spec_f = torch.cat([plant.a_lin[:, :2], plant.a_lin[:, 2:] + GRAVITY], dim=-1)
+        accel_body = rotate_transposed(R_wb, spec_f)
+        ctrl_new, u, _des, status, hover_pct = bfctrl_step(
+            ws.ctrl, t, plant.p, plant.v, plant.q, cmd, torch.where(mission == MISSION_LAND, LAND_CMD, 0), zero,
+            torch.full((b,), torch.inf, dtype=dtype, device=dev), torch.zeros((b, 2), dtype=dtype, device=dev),
+            params.bfctrl, imu_a=accel_body, vfr=VfrHudInput(throttle=ws.prev_thrust, age=zero),
+        )
 
-    # --- 6: the plant ---
-    plant_new = sixdof_step(plant, u.q, u.thrust, params.con_dt, params.plant)
-    mark("control + plant")
+        # --- 6: the plant ---
+        plant_new = sixdof_step(plant, u.q, u.thrust, params.con_dt, params.plant)
 
     diag = WorldDiag(p=plant.p, v=plant.v, mission=mission, bf_status=status, is_safety=out.is_safety | ~in_task,
                      clearance=field_clearance(plant.p, field), u_cmd=out.u_cmd, hover_pct=hover_pct,
@@ -302,11 +303,11 @@ def world_step_full(ws: WorldState, field: ObstacleField, params: WorldParams, h
 
 
 def rollout_world(ws: WorldState, field: ObstacleField, params: WorldParams, hyper: WorldHyper, n_ticks: int,
-                  generator: torch.Generator | None = None, mark=None) -> tuple[WorldState, WorldDiag]:
+                  generator: torch.Generator | None = None) -> tuple[WorldState, WorldDiag]:
     """``n_ticks`` chained ticks (a Python loop); the diagnostics stacked
-    batch-first, (B, n_ticks, ...).  ``mark`` as in :func:`world_step_full`."""
+    batch-first, (B, n_ticks, ...)."""
     diags = []
     for _ in range(n_ticks):
-        ws, diag = world_step(ws, field, params, hyper, generator, mark)
+        ws, diag = world_step(ws, field, params, hyper, generator)
         diags.append(diag)
     return ws, WorldDiag(*(torch.stack(f, dim=1) for f in zip(*diags)))

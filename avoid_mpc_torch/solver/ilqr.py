@@ -52,6 +52,7 @@ from avoid_mpc_torch.models.costs import (
 from avoid_mpc_torch.models.quadrotor import DynamicsParams, rk4_step
 from avoid_mpc_torch.solver.boxqp import boxqp, masked_newton_matrix
 from avoid_mpc_torch.solver.linalg import solve4_mat
+from avoid_mpc_torch.utils.profiling import span
 
 
 class MPCProblem(NamedTuple):
@@ -474,15 +475,17 @@ def solve_batched(
     another dtype on CUDA, runs :func:`solve_plain`, as the reference
     routes by dtype (``device.kernel_route``), and so does a drag problem
     on any device (the reference routes it to no kernel).  Float32 matmuls
-    run in full float32 (:func:`f32_matmul_highest`)."""
-    if not kernel_route(us_init) or sp.dyn.use_drag:
-        return solve_plain(problems, us_init, sp, hp)
-    if not hp.fuse:
-        return solve_phased(problems, us_init, sp, hp)
-    from avoid_mpc_torch.solver.sqp_cuda import sqp_solve  # imports this module
+    run in full float32 (:func:`f32_matmul_highest`).  Span: ``solve``,
+    inside it the fused path's (``sqp_cuda.sqp_solve``)."""
+    with span("solve"):
+        if not kernel_route(us_init) or sp.dyn.use_drag:
+            return solve_plain(problems, us_init, sp, hp)
+        if not hp.fuse:
+            return solve_phased(problems, us_init, sp, hp)
+        from avoid_mpc_torch.solver.sqp_cuda import sqp_solve  # imports this module
 
-    with f32_matmul_highest():
-        return sqp_solve(problems, us_init, sp, hp)
+        with f32_matmul_highest():
+            return sqp_solve(problems, us_init, sp, hp)
 
 
 def solve(problem: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper = SolverHyper()) -> SolveResult:

@@ -45,6 +45,7 @@ from avoid_mpc_torch.solver.ilqr import (
     _affine_dynamics,
     solve_plain,
 )
+from avoid_mpc_torch.utils.profiling import span
 
 
 def _r4(n: int) -> int:  # every array starts on a 16-byte boundary
@@ -143,7 +144,10 @@ def sqp_solve(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper =
     per-scenario exit.  x0 (B,10), us_init (B,N,4), ref (B,N,10),
     obstacles (B,N,K,3), target (B,10).  The kernel is LTI only: on CUDA
     a drag problem is refused (:func:`solve_batched` routes it to
-    :func:`solve_plain`, as the reference routes drag to no kernel)."""
+    :func:`solve_plain`, as the reference routes drag to no kernel).
+    Spans: ``solve.affine`` (the float64 affine map), ``solve.pack`` (the
+    constants block and the output buffers), ``solve.launch`` (the
+    kernel's launcher) and ``solve.result``."""
     if not us_init.is_cuda:
         return solve_plain(problems, us_init, sp, hp)
     if sp.dyn.use_drag:
@@ -166,28 +170,32 @@ def sqp_solve(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper =
             f"{tuple(x0.shape)}, {tuple(us_init.shape)}, {tuple(ref.shape)}, {tuple(obs.shape)}, {tuple(target.shape)}"
         )
 
-    Ad, Bd, cvec = _affine_dynamics(sp, torch.float32)
-    consts = pack_constants(sp, Ad, Bd, cvec)
-    us = torch.empty((b, n, NU), dtype=torch.float32, device=dev)
-    xs = torch.empty((b, n + 1, NX), dtype=torch.float32, device=dev)
-    stats = torch.empty((4, b), dtype=torch.float32, device=dev)  # cost, grad_norm, reg, updates
-    if b == 0:
-        return _result(us, xs, stats, hp)
-    geo = launch_geometry(b, n, k_obs, hp.n_alphas)
-    kt_ws = torch.empty((b, n, NU * NX), dtype=torch.float32, device=dev)  # each stage's K^T, kernel-private
-    err = _launcher()(
-        consts.data_ptr(), consts.numel(), x0.data_ptr(), us_init.data_ptr(), ref.data_ptr(),
-        obs.data_ptr(), target.data_ptr(), us.data_ptr(), xs.data_ptr(), stats.data_ptr(), kt_ws.data_ptr(),
-        b, n, k_obs, hp.iters, hp.n_alphas, hp.boxqp_iters, hp.reg_init, hp.reg_min, hp.reg_max, hp.grad_tol,
-        *geo, dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with span("solve.affine"):
+        Ad, Bd, cvec = _affine_dynamics(sp, torch.float32)
+    with span("solve.pack"):
+        consts = pack_constants(sp, Ad, Bd, cvec)
+        us = torch.empty((b, n, NU), dtype=torch.float32, device=dev)
+        xs = torch.empty((b, n + 1, NX), dtype=torch.float32, device=dev)
+        stats = torch.empty((4, b), dtype=torch.float32, device=dev)  # cost, grad_norm, reg, updates
+        if b == 0:
+            return _result(us, xs, stats, hp)
+        geo = launch_geometry(b, n, k_obs, hp.n_alphas)
+        kt_ws = torch.empty((b, n, NU * NX), dtype=torch.float32, device=dev)  # each stage's K^T, kernel-private
+    with span("solve.launch"):
+        err = _launcher()(
+            consts.data_ptr(), consts.numel(), x0.data_ptr(), us_init.data_ptr(), ref.data_ptr(),
+            obs.data_ptr(), target.data_ptr(), us.data_ptr(), xs.data_ptr(), stats.data_ptr(), kt_ws.data_ptr(),
+            b, n, k_obs, hp.iters, hp.n_alphas, hp.boxqp_iters, hp.reg_init, hp.reg_min, hp.reg_max, hp.grad_tol,
+            *geo, dev.index if dev.index is not None else torch.cuda.current_device(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"sqp_solve: kernel launch failed with CUDA error {err}")
     sqp_solve.launches += 1
     if _update_log is not None:
         _update_log.append((b, n, k_obs, hp.n_alphas, hp.boxqp_iters, stats[3]))
-    return _result(us, xs, stats, hp)
+    with span("solve.result"):
+        return _result(us, xs, stats, hp)
 
 
 sqp_solve.launches = 0

@@ -28,6 +28,7 @@ from avoid_mpc_torch.sim.scenarios import (
     random_start_states,
 )
 from avoid_mpc_torch.solver.ilqr import MPCProblem, SolverHyper, SolverParams, solve_batched
+from avoid_mpc_torch.utils.profiling import span
 
 # N = 20, the flagship horizon
 FLAGSHIP = MPCConfig(mpc_T=0.66)
@@ -69,12 +70,15 @@ def solve_step(x0, ref, target, pts, mask, us_warm, sp: SolverParams | None = No
                hp: SolverHyper | None = None):
     """One tick: 3-NN association of the reference nodes against each
     scenario's cloud, then the warm-started solve.  Returns
-    (us (B,N,4), xs[:, :-1] (B,N,10), cost (B,), converged (B,))."""
-    if sp is None or hp is None:
-        sp_d, hp_d = flagship_params(x0.device, x0.dtype)
-        sp = sp_d if sp is None else sp
-        hp = hp_d if hp is None else hp
-    x0, ref, target, us_warm = (t.contiguous() for t in (x0, ref, target, us_warm))
-    _, obstacles = knn(ref[..., 0:3].contiguous(), pts, mask, k=FLAGSHIP.nearest_point_count)
-    res = solve_batched(MPCProblem(x0=x0, ref=ref, obstacles=obstacles, target=target), us_warm, sp, hp)
-    return res.us, res.xs[:, :-1], res.cost, res.converged
+    (us (B,N,4), xs[:, :-1] (B,N,10), cost (B,), converged (B,)).  Spans:
+    ``step``, inside it ``step.assoc`` and the solve's."""
+    with span("step"):
+        if sp is None or hp is None:
+            sp_d, hp_d = flagship_params(x0.device, x0.dtype)
+            sp = sp_d if sp is None else sp
+            hp = hp_d if hp is None else hp
+        x0, ref, target, us_warm = (t.contiguous() for t in (x0, ref, target, us_warm))
+        with span("step.assoc"):
+            _, obstacles = knn(ref[..., 0:3].contiguous(), pts, mask, k=FLAGSHIP.nearest_point_count)
+        res = solve_batched(MPCProblem(x0=x0, ref=ref, obstacles=obstacles, target=target), us_warm, sp, hp)
+        return res.us, res.xs[:, :-1], res.cost, res.converged

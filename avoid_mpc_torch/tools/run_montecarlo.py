@@ -98,15 +98,13 @@ def setup(args) -> Campaign:
     return Campaign(cfg, params, hyper, fields, world_init(cfg, params, hyper, starts), gen)
 
 
-def run_chunk(camp: Campaign, ws, decay, n_ticks: int, mark=None):
+def run_chunk(camp: Campaign, ws, decay, n_ticks: int):
     """``n_ticks`` chained ticks with the state prediction's lookahead
     ``decay`` (a 0-dim device tensor); returns (state, diagnostics
-    (B, n_ticks, ...)).  ``mark`` sees each tick's stage boundaries
-    (``sim/world.world_step_full``)."""
+    (B, n_ticks, ...))."""
     from avoid_mpc_torch.sim.world import rollout_world
 
-    return rollout_world(ws, camp.fields, camp.params._replace(decay=decay), camp.hyper, n_ticks, camp.generator,
-                         mark)
+    return rollout_world(ws, camp.fields, camp.params._replace(decay=decay), camp.hyper, n_ticks, camp.generator)
 
 
 def main(argv=None) -> dict:

@@ -54,6 +54,7 @@ from avoid_mpc_torch.ops.depth import process_depth_frame
 from avoid_mpc_torch.runtime.mav_input import MavVehicleInput
 from avoid_mpc_torch.runtime.native import FrameRing, MavConnection
 from avoid_mpc_torch.sim.plant import SixDofParams, sixdof_rotor_init, sixdof_step_rotor
+from avoid_mpc_torch.utils.profiling import span
 from avoid_mpc_torch.utils.quaternion import compose_tf, quat_to_rotmat, rigid_transform, rotmat_to_ypr, yaw_from_quat
 
 DT = 0.02  # 50 Hz, the reference's control tick
@@ -259,17 +260,22 @@ def ingest_step(home: HomeFrame, odom, depth, m, state, params, hyper, mark=None
     ``params`` / ``hyper`` are a world's (``sim/world.build_world``).
     ``mark(stage)`` is called after "depth", "map" and "engine".  Returns
     (home, local odometry, frame, map, engine state, StepOutput); no host
-    sync."""
+    sync.  Spans: ``ingest``, inside it ``perception``, ``mapping`` and
+    ``engine``."""
     mark = mark or (lambda stage: None)
-    home, odom = local_odometry(home, odom)
-    Twb = rigid_transform(quat_to_rotmat(odom[2]), odom[0])
-    frame = process_depth_frame(depth, Twb, params.cam)
-    mark("depth")
-    m = map_update(m, frame, Twb, params)
-    mark("map")
-    state, out = receding_step(state, engine_quad(odom), m, params.engine, hyper.engine)
-    mark("engine")
-    return home, odom, frame, m, state, out
+    with span("ingest"):
+        with span("perception"):
+            home, odom = local_odometry(home, odom)
+            Twb = rigid_transform(quat_to_rotmat(odom[2]), odom[0])
+            frame = process_depth_frame(depth, Twb, params.cam)
+        mark("depth")
+        with span("mapping"):
+            m = map_update(m, frame, Twb, params)
+        mark("map")
+        with span("engine"):
+            state, out = receding_step(state, engine_quad(odom), m, params.engine, hyper.engine)
+        mark("engine")
+        return home, odom, frame, m, state, out
 
 
 class IngestChain:

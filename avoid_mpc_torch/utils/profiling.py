@@ -6,7 +6,12 @@
   its measured solve latency back as the state-prediction lookahead);
 - :func:`timed`: wall time of a call, the device synchronised before and
   after;
-- :func:`trace`: a ``torch.profiler`` session written as a Chrome trace;
+- :func:`span`: the program's spans, host time per layer on the
+  profiler's clock, recorded only while a ``torch.profiler`` session
+  records (:func:`spans`, :func:`span_totals`, :func:`attribute_idle`
+  read them);
+- :func:`trace`: a ``torch.profiler`` session written as a Chrome trace,
+  the spans on a track of their own;
 - :func:`profiled`: the one place that repeats a profiler session which
   lost kernel records;
 - :func:`per_call_ms`, :func:`device_time`, :func:`kernel_launches`,
@@ -21,13 +26,16 @@
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import json
 import os
 import time
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 class LatencyTracker:
@@ -70,6 +78,243 @@ def timed(fn: Callable, *args, **kwargs):
     return out, time.perf_counter() - t0
 
 
+# ---- program spans ----
+
+SPAN_RING = 4096  # span records kept; older ones are dropped and counted
+SPAN_CAT = "program_span"  # the spans' category in an exported trace
+SPAN_TID = 0  # their track: no host thread of the trace has id 0
+OUTSIDE = "outside spans"  # :func:`attribute_idle`'s name for time in no span
+
+
+class SpanRecord(NamedTuple):
+    """One span: ``parent`` is the ``id`` of the span open around it (None
+    at the top); ``start_ns`` and ``end_ns`` are the host clock that the
+    profiler's events carry (``time.time_ns``)."""
+
+    id: int
+    name: str
+    parent: int | None
+    start_ns: int
+    end_ns: int
+
+
+class SpanLog(list):
+    """Span records, and ``dropped``: how many the ring let go before
+    them."""
+
+    def __init__(self, records=(), dropped: int = 0):
+        super().__init__(records)
+        self.dropped = dropped
+
+
+class _SpanRing:
+    """The records in the order their spans ended, at most ``size`` of
+    them; the ids of the spans open now, innermost last (spans nest on
+    one thread); the count the ring dropped."""
+
+    def __init__(self, size: int):
+        self.records: collections.deque = collections.deque(maxlen=size)
+        self.open: list[int] = []
+        self.next_id = 0
+        self.dropped = 0
+
+    def add(self, rec: SpanRecord) -> None:
+        if len(self.records) == self.records.maxlen:
+            self.dropped += 1
+        self.records.append(rec)
+
+
+_ring = _SpanRing(SPAN_RING)
+
+
+class _NoSpan:
+    """What :func:`span` returns while nothing records: one object, shared."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "id", "parent", "start_ns")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        r = _ring
+        self.id = r.next_id
+        r.next_id += 1
+        self.parent = r.open[-1] if r.open else None
+        r.open.append(self.id)
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end_ns = time.time_ns()
+        _ring.open.pop()
+        _ring.add(SpanRecord(self.id, self.name, self.parent, self.start_ns, end_ns))
+        return False
+
+
+def span(name: str):
+    """``with span("solve"): ...`` records the block's host time under
+    ``name``, its parent the span open around it, while a
+    ``torch.profiler`` session records (under a schedule, its active
+    steps).  Otherwise it returns one shared object that does nothing:
+    one check, no allocation, no clock read."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name)
+
+
+def spans() -> SpanLog:
+    """The records the ring holds, in the order their spans ended, with
+    its ``dropped`` count."""
+    return SpanLog(_ring.records, _ring.dropped)
+
+
+def clear_spans() -> None:
+    """Empty the ring and zero its ``dropped`` count."""
+    _ring.records.clear()
+    _ring.dropped = 0
+
+
+def span_totals(records, top: str, last: int) -> dict | None:
+    """Per span name, over the last ``last`` spans named ``top`` (by start)
+    and the spans inside them: ``ms``, host milliseconds a ``top`` span
+    (its children's included), ``self_ms``, the same less its children's,
+    and ``calls`` a ``top`` span.  None where fewer than ``last`` spans
+    named ``top`` were recorded or ``records`` had any dropped
+    (:class:`SpanLog`)."""
+    if last < 1 or getattr(records, "dropped", 0):
+        return None
+    tops = sorted((r for r in records if r.name == top), key=lambda r: r.start_ns)
+    if len(tops) < last:
+        return None
+    inside = {r.id for r in tops[-last:]}
+    chosen = []
+    for r in sorted(records, key=lambda r: r.id):  # a parent's id is below its children's
+        if r.id in inside or r.parent in inside:
+            inside.add(r.id)
+            chosen.append(r)
+    child_ns = collections.Counter()
+    for r in chosen:
+        if r.parent in inside:
+            child_ns[r.parent] += r.end_ns - r.start_ns
+    sums: dict[str, list] = {}
+    for r in chosen:
+        s = sums.setdefault(r.name, [0, 0, 0])
+        s[0] += r.end_ns - r.start_ns
+        s[1] += r.end_ns - r.start_ns - child_ns[r.id]
+        s[2] += 1
+    return {k: {"ms": v[0] / 1e6 / last, "self_ms": v[1] / 1e6 / last, "calls": v[2] / last}
+            for k, v in sums.items()}
+
+
+def _innermost(records) -> list[tuple[int, int, str]]:
+    """The records' time cut into (start_ns, end_ns, name) pieces, in
+    order, each named by the innermost span open through it."""
+    pieces, stack, t = [], [], 0
+    for r in sorted(records, key=lambda r: (r.start_ns, -r.end_ns)):
+        while stack and stack[-1].end_ns <= r.start_ns:
+            done = stack.pop()
+            if done.end_ns > t:
+                pieces.append((t, done.end_ns, done.name))
+                t = done.end_ns
+        if stack and r.start_ns > t:
+            pieces.append((t, r.start_ns, stack[-1].name))
+        stack.append(r)
+        t = max(t, r.start_ns)
+    while stack:
+        done = stack.pop()
+        if done.end_ns > t:
+            pieces.append((t, done.end_ns, done.name))
+            t = done.end_ns
+    return pieces
+
+
+def attribute_idle(device_intervals, records, window: tuple[int, int] | None = None) -> dict[str, float]:
+    """Seconds of the device's idle time, put down to the span that was
+    innermost on the host while the device waited.
+
+    ``device_intervals`` are the device's operations as (start_ns,
+    end_ns) on the spans' clock (:func:`device_intervals`).  Idle is every
+    gap between them and, with ``window`` (start_ns, end_ns), the window's
+    time before the first and after the last (operations are clipped to
+    the window).  Each gap is split over the innermost span of ``records``
+    open at each instant; time in no span counts as :data:`OUTSIDE` (the
+    caller's own code).  The parts sum to the idle total."""
+    ivs = sorted((s, e) for s, e in device_intervals if e > s)
+    if window is not None:
+        ivs = [(max(s, window[0]), min(e, window[1])) for s, e in ivs if e > window[0] and s < window[1]]
+    if not ivs and window is None:
+        return {}
+    gaps, t = [], window[0] if window is not None else ivs[0][0]
+    for s, e in ivs:
+        if s > t:
+            gaps.append((t, s))
+        t = max(t, e)
+    if window is not None and window[1] > t:
+        gaps.append((t, window[1]))
+    pieces = _innermost(records)
+    out: dict[str, int] = collections.defaultdict(int)
+    j = 0
+    for g0, g1 in gaps:
+        while j < len(pieces) and pieces[j][1] <= g0:
+            j += 1
+        covered, k = 0, j
+        while k < len(pieces) and pieces[k][0] < g1:
+            a, b, name = pieces[k]
+            part = min(b, g1) - max(a, g0)
+            if part > 0:
+                out[name] += part
+                covered += part
+            k += 1
+        out[OUTSIDE] += g1 - g0 - covered
+    return {k: v * 1e-9 for k, v in out.items()}
+
+
+def device_intervals(prof) -> list[tuple[int, int]]:
+    """The device operations of a finished ``torch.profiler`` session
+    (kernels, copies and sets; not the profiler's annotations) as
+    (start_ns, end_ns) on the clock the spans carry: the session's start
+    plus each event's offset."""
+    from torch.autograd import DeviceType
+
+    base = prof.profiler.kineto_results.trace_start_ns()
+    return [(base + round(e.time_range.start * 1e3), base + round(e.time_range.end * 1e3)) for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+
+
+def export_trace(prof, path: str) -> None:
+    """``prof.export_chrome_trace(path)``, with the spans that started in
+    the session added as complete events of category :data:`SPAN_CAT`
+    (``args``: ``id``, ``parent``) on a track of their own, in the trace's
+    time base (``ts`` microseconds after ``baseTimeNanoseconds``)."""
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        doc = json.load(f)
+    base = doc.get("baseTimeNanoseconds", 0)
+    start_ns = prof.profiler.kineto_results.trace_start_ns()
+    pid = os.getpid()
+    events = doc["traceEvents"]
+    events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": SPAN_TID, "args": {"name": "program spans"}})
+    events += [{"ph": "X", "cat": SPAN_CAT, "name": r.name, "pid": pid, "tid": SPAN_TID,
+                "ts": (r.start_ns - base) / 1e3, "dur": (r.end_ns - r.start_ns) / 1e3,
+                "args": {"id": r.id, "parent": r.parent}}
+               for r in spans() if r.start_ns >= start_ns]
+    with open(path, "w") as f:
+        json.dump(doc, f)
+
+
 @contextlib.contextmanager
 def session(cuda: bool, settle_s: float = 0.0):
     """A ``torch.profiler`` session of the block (host, and the card if
@@ -88,11 +333,12 @@ def session(cuda: bool, settle_s: float = 0.0):
 @contextlib.contextmanager
 def trace(logdir: str):
     """Profile the block (host, and the card when there is one) and write
-    ``logdir/trace.json``: ``with trace('runs/trace'): step()``."""
+    ``logdir/trace.json`` with the block's spans (:func:`export_trace`):
+    ``with trace('runs/trace'): step()``."""
     os.makedirs(logdir, exist_ok=True)
     with session(torch.cuda.is_available()) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    export_trace(prof, os.path.join(logdir, "trace.json"))
 
 
 KERNELS = ("knn_topk", "sqp_solve", "riccati_backward", "line_search")  # wrappers with a launch count

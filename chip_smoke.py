@@ -108,16 +108,17 @@ ticks, once with the fused solve and once with the per-phase solve
     the commands agree, the depth frames;
 15. the Monte-Carlo fleet: ``tools/run_montecarlo``'s ``setup`` and
     ``run_chunk`` at B=64 for 300 ticks (80x60 render, 100 keyframes of
-    300 points, N=30), each tick timed by stage (render, depth, map,
-    engine, control + plant; CUDA events), 8 k-NN and 3 SQP launches per
+    300 points, N=30), each tick timed (CUDA events) and split by stage
+    (render, perception, mapping, engine, control: the spans of 5 ticks
+    under the profiler, host ms), 8 k-NN and 3 SQP launches per
     tick, every scenario in TASK, finite states, converged share,
     collisions, minimum clearance, final x, one tick's device time, idle
     share and SQP bound, one tick under ``set_sync_debug_mode("error")``;
 16. the single robot at full fidelity (``bench_single_robot``'s geometry:
     640x480, 3,072 points a frame, 100 keyframes, N=30, 24 trees): 90
-    chained ticks from the ground timed by stage against the reference's
-    33 ms, 11 k-NN and 3 SQP launches per tick, finite states, device
-    time, idle share and SQP bound, no host sync;
+    chained ticks from the ground timed against the reference's 33 ms and
+    split by stage (spans), 11 k-NN and 3 SQP launches per tick, finite
+    states, device time, idle share and SQP bound, no host sync;
 17. the scale-out (``tools/dryrun_multichip``'s 8 slots on the card, a 4 x
     2 mesh, the flagship shapes): one sharded step (4 SQP launches of
     B=1024, 2 k-NN launches of B=1, Q=4096, P=4096 and the association)
@@ -220,6 +221,7 @@ checkout, it exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import shutil
@@ -629,7 +631,7 @@ def knn_counts_phase(q, pts_gate, mask_gate, pts, mask) -> tuple[float, dict, di
     knn_mod.knn_plain = knn_cuda.knn_plain = counted_plain
     try:
         n0 = knn_cuda.knn_topk.launches
-        with knn_cuda.record_calls() as log:
+        with record_knn_calls() as log:
             d37, p37 = knn_mod.knn(q, pts, mask, 37)
         launched = knn_cuda.knn_topk.launches - n0
     finally:
@@ -752,7 +754,9 @@ ENGINE_LAUNCHES = {"forest_10k": {"knn_topk": 6, "sqp_solve": 3},  # per tick: 3
                    "vehicle link ingest": {"knn_topk": 11, "sqp_solve": 3}}  # phase 18c: phase 12's stages
 FLEET_B, FLEET_TICKS = 64, 300  # phase 15: the README's campaign (run_montecarlo --batch 64 --ticks 300)
 SR_LOOP_WARMUP, SR_LOOP_TICKS = 2, 90  # phase 16: ticks not timed, then timed (about half of them in TASK)
-STAGES = ("render", "depth", "map", "engine", "control + plant")  # sim/world.world_step_full's marks
+INGEST_MARKS = ("depth", "map", "engine")  # tools/vehicle_link.ingest_step's marks
+WORLD_SPANS = ("render", "perception", "mapping", "engine", "control")  # sim/world.world_step_full's spans
+SPAN_TICKS = 5  # world ticks under the profiler whose spans split a tick by stage
 
 
 def launch_counts() -> dict:
@@ -768,6 +772,32 @@ def zero_launch_counts() -> None:
     from avoid_mpc_torch.solver.sqp_cuda import sqp_solve
 
     knn_topk.launches = sqp_solve.launches = riccati_backward.launches = line_search.launches = 0
+
+
+@contextlib.contextmanager
+def record_knn_calls():
+    """(B, Q, P, k, valid points as a 0-dim device tensor) of every k-NN
+    kernel launch in the block, for the bounds and the k of each launch:
+    ``ops/knn_cuda.knn_topk``, which ``ops/knn.knn`` looks up at each call,
+    is wrapped for the block, its launch count carried over."""
+    from avoid_mpc_torch.ops import knn_cuda
+
+    orig, log = knn_cuda.knn_topk, []
+
+    def logged(queries, points, mask, k):
+        n = logged.launches
+        out = orig(queries, points, mask, k)  # counts its launch on knn_cuda.knn_topk, i.e. on logged
+        if logged.launches > n:
+            log.append((queries.shape[0], queries.shape[1], points.shape[1], k, mask.sum()))
+        return out
+
+    logged.launches = orig.launches
+    knn_cuda.knn_topk = logged
+    try:
+        yield log
+    finally:
+        knn_cuda.knn_topk = orig
+        orig.launches = logged.launches
 
 
 def tick_breakdown(fn, reps: int = 3) -> tuple[float, dict]:
@@ -842,11 +872,9 @@ def sqp_tick_bound(label: str, tick, sqp_ms: float) -> dict:
 def knn_tick_bound(label: str, tick, knn_ms: float) -> dict:
     """The k-NN kernel's bound for the launches of one call of ``tick``:
     the sum of each launch's own bound from its shape and valid points
-    (``knn_cuda.record_calls``), beside ``knn_ms``, the kernel's device
+    (:func:`record_knn_calls`), beside ``knn_ms``, the kernel's device
     time for those launches."""
-    from avoid_mpc_torch.ops.knn_cuda import record_calls
-
-    with record_calls() as log:
+    with record_knn_calls() as log:
         tick()
     each = [bound_ms(n_bytes, n_ops, F32_INSTR_PER_S)
             for n_ops, n_bytes in (knn_counts(b, q, p, k, int(n)) for b, q, p, k, n in log)]
@@ -1218,39 +1246,61 @@ def _finite_floats(tree) -> bool:
 
 
 def _stage_marks():
-    """CUDA events for a tick's start, each of ``STAGES`` and its end, and
-    the ``mark`` callback that records the stages."""
+    """CUDA events for a tick's start, each of ``INGEST_MARKS`` and its end,
+    and the ``mark`` callback that records the stages."""
     import torch
 
-    e = {s: torch.cuda.Event(enable_timing=True) for s in ("start",) + STAGES + ("end",)}
+    e = {s: torch.cuda.Event(enable_timing=True) for s in ("start",) + INGEST_MARKS + ("end",)}
     return e, (lambda stage: e[stage].record())
 
 
-def _stage_p50(evs, ticks=None) -> dict:
-    """p50 ms of each stage and of the whole tick over ``evs`` (a list of
-    :func:`_stage_marks` dicts, optionally only the indices ``ticks``)."""
-    sel = [evs[i] for i in (range(len(evs)) if ticks is None else ticks)]
+def _tick_events():
+    """A tick's start and end CUDA events, the start recorded."""
+    import torch
 
-    def p50(a, b):
-        ms = sorted(e[a].elapsed_time(e[b]) for e in sel)
-        return ms[len(ms) // 2]
+    e = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    e[0].record()
+    return e
 
-    bounds = ("start",) + STAGES
-    out = {s: p50(a, s) for a, s in zip(bounds, STAGES)}
-    ticks_ms = sorted(e["start"].elapsed_time(e["end"]) for e in sel)
-    out.update(tick=ticks_ms[len(ticks_ms) // 2], tick_min=ticks_ms[0], tick_max=ticks_ms[-1])
-    return out
+
+def _tick_p50(evs, ticks=None) -> dict:
+    """p50, min and max ms of the ticks of ``evs`` (a list of
+    :func:`_tick_events` pairs, optionally only the indices ``ticks``)."""
+    ms = sorted(evs[i][0].elapsed_time(evs[i][1]) for i in (range(len(evs)) if ticks is None else ticks))
+    return {"tick": ms[len(ms) // 2], "tick_min": ms[0], "tick_max": ms[-1]}
+
+
+def world_stage_ms(tick, n: int = SPAN_TICKS) -> dict:
+    """Host ms a tick of each of ``WORLD_SPANS`` (and of the whole tick,
+    ``"tick"``) over ``n`` calls of ``tick``, one world tick each, in a
+    ``torch.profiler`` session of the card: the program's spans record
+    only while one does."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from avoid_mpc_torch.utils import profiling
+
+    profiling.clear_spans()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        for _ in range(n):
+            with profiling.span("tick"):
+                tick()
+        torch.cuda.synchronize()
+    t = profiling.span_totals(profiling.spans(), "tick", n) or {}
+    return {s: t.get(s, {}).get("ms", float("nan")) for s in ("tick",) + WORLD_SPANS}
 
 
 def _stage_line(t: dict) -> str:
-    return " + ".join(f"{s} {t[s]:.3f}" for s in STAGES)
+    return " + ".join(f"{s} {t[s]:.3f}" for s in WORLD_SPANS) + f" of {t['tick']:.3f}"
 
 
 def fleet_campaign(dev) -> dict:
     """Phase 15: the README's Monte-Carlo campaign, B=64 scenarios for 300
     ticks, built and flown by ``tools/run_montecarlo``'s own functions
     (``setup``, ``run_chunk``; the latency tracker's decay handed in once per
-    chunk of 50 ticks), every tick timed by stage with CUDA events; launch
+    chunk of 50 ticks), every tick timed with CUDA events and split by stage
+    from the spans of a few ticks under the profiler; launch
     counts, finite states, every scenario in TASK, one tick's device time
     and SQP bound, one tick under ``set_sync_debug_mode("error")``."""
     import torch
@@ -1281,10 +1331,9 @@ def fleet_campaign(dev) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(args.chunk):
-            e, mark = _stage_marks()
-            e["start"].record()
-            ws, diag = mc.run_chunk(camp, ws, decay, 1, mark)
-            e["end"].record()
+            e = _tick_events()
+            ws, diag = mc.run_chunk(camp, ws, decay, 1)
+            e[1].record()
             evs.append(e)
             task = diag.mission[:, 0] == MISSION_TASK
             reached |= task
@@ -1297,7 +1346,7 @@ def fleet_campaign(dev) -> dict:
     want = {"riccati_backward": 0, "line_search": 0,
             **{k: v * FLEET_TICKS for k, v in ENGINE_LAUNCHES["fleet closed loop"].items()}}
     check(launches == want, f"fleet launch counts {launches} != {want}")
-    t = _stage_p50(evs)
+    t = _tick_p50(evs)
     fin = _finite_floats(ws)
     all_task = bool(reached.all())
     check(fin, "fleet: a state is not finite after the campaign")
@@ -1316,9 +1365,10 @@ def fleet_campaign(dev) -> dict:
     sqp_bound = sqp_tick_bound("phase 15 fleet", tick, parts["sqp_solve_kernel"])
     sync_err = host_sync(tick)
     check(sync_err is None, f"fleet tick synchronised with the host: {sync_err}")
+    stages = world_stage_ms(tick)
     print(f"phase 15 fleet: p50 tick {t['tick']:.3f} ms (min {t['tick_min']:.3f}, max {t['tick_max']:.3f}; CUDA "
-          f"events, {FLEET_TICKS} ticks) = {_stage_line(t)} ms (each a p50 of its own), {FLEET_B / t['tick'] * 1e3:.1f} "
-          f"scenario ticks/s; launches {launches} ({ENGINE_LAUNCHES['fleet closed loop']} per tick); every scenario "
+          f"events, {FLEET_TICKS} ticks), host ms a tick by stage {_stage_line(stages)} (spans, {SPAN_TICKS} ticks "
+          f"under the profiler), {FLEET_B / t['tick'] * 1e3:.1f} scenario ticks/s; launches {launches} ({ENGINE_LAUNCHES['fleet closed loop']} per tick); every scenario "
           f"reached TASK {all_task}, all states finite {fin}; converged share in TASK {conv_share:.4f}, collisions "
           f"{int((mc_ <= 0.0).sum())}, min_clearance {float(mc_.min()):.3f} m, final_x_mean {final_x:.3f} m; decay fed "
           f"per chunk, last {tracker.decay * 1e3:.3f} ms (clamped to 100); one tick under set_sync_debug_mode('error'):"
@@ -1327,7 +1377,7 @@ def fleet_campaign(dev) -> dict:
           f"{parts['knn_topk_kernel']:.4f} (8 launches) + sqp {parts['sqp_solve_kernel']:.4f} (3 launches) + other "
           f"torch ops {busy - sum(parts.values()):.3f}; idle share of the p50 tick {1.0 - busy / t['tick']:.3f}",
           flush=True)
-    return {"ms": t, "launches": launches, "busy": busy, "parts": parts, "sqp_bound": sqp_bound,
+    return {"ms": t, "stages": stages, "launches": launches, "busy": busy, "parts": parts, "sqp_bound": sqp_bound,
             "tick": (ws, camp.fields, params, h)}
 
 
@@ -1336,7 +1386,8 @@ def single_robot_loop(dev) -> dict:
     ``tools/bench_single_robot.py`` geometry: a 640x480 render with depth
     noise, the /10 grid (3,072 points a frame), 100 keyframes,
     ``EngineConfig()`` (N=30, 3 outer iterations), 24 trees; chained ticks
-    from the ground, timed by stage, against the reference's 33 ms."""
+    from the ground, timed against the reference's 33 ms and split by stage
+    from the spans of a few ticks under the profiler."""
     import torch
 
     from avoid_mpc_torch import config
@@ -1354,10 +1405,9 @@ def single_robot_loop(dev) -> dict:
     zero_launch_counts()
     evs, missions = [], []
     for _ in range(SR_LOOP_TICKS):
-        e, mark = _stage_marks()
-        e["start"].record()
-        ws, diag = world_step(ws, field, params, h, gen, mark)
-        e["end"].record()
+        e = _tick_events()
+        ws, diag = world_step(ws, field, params, h, gen)
+        e[1].record()
         evs.append(e)
         missions.append(diag.mission)
     torch.cuda.synchronize()
@@ -1366,8 +1416,8 @@ def single_robot_loop(dev) -> dict:
             **{k: v * SR_LOOP_TICKS for k, v in ENGINE_LAUNCHES["single robot closed loop"].items()}}
     check(launches == want, f"single robot closed loop launch counts {launches} != {want}")
     in_task = [i for i, m in enumerate(torch.cat(missions).tolist()) if m == MISSION_TASK]
-    t = _stage_p50(evs)
-    t_task = _stage_p50(evs, in_task) if in_task else None
+    t = _tick_p50(evs)
+    t_task = _tick_p50(evs, in_task) if in_task else None
     fin = _finite_floats(ws)
     check(fin, "single robot closed loop: a state is not finite")
     state = ws
@@ -1379,12 +1429,13 @@ def single_robot_loop(dev) -> dict:
     sqp_bound = sqp_tick_bound("phase 16 single robot closed loop", tick, parts["sqp_solve_kernel"])
     sync_err = host_sync(tick)
     check(sync_err is None, f"single robot closed-loop tick synchronised with the host: {sync_err}")
-    task_txt = (f"; the {len(in_task)} ticks in TASK: p50 {t_task['tick']:.3f} ms = {_stage_line(t_task)}"
-                if t_task else "; no tick in TASK")
+    stages = world_stage_ms(tick)
+    task_txt = f"; the {len(in_task)} ticks in TASK: p50 {t_task['tick']:.3f} ms" if t_task else "; no tick in TASK"
     print(f"phase 16 single robot closed loop: {h.render_w}x{h.render_h} render, {h.map_shape.points_per_frame} points "
           f"a frame, {h.map_shape.n_frames} keyframes, N={h.engine.n}, 24 trees; {SR_LOOP_TICKS} chained ticks, p50 "
-          f"tick {t['tick']:.3f} ms (min {t['tick_min']:.3f}, max {t['tick_max']:.3f}; CUDA events) = {_stage_line(t)} ms"
-          f"{task_txt}; against the reference's 33 ms loop budget: {'met' if t['tick'] <= 33.0 else 'missed'}; "
+          f"tick {t['tick']:.3f} ms (min {t['tick_min']:.3f}, max {t['tick_max']:.3f}; CUDA events){task_txt}; host "
+          f"ms a tick by stage {_stage_line(stages)} (spans, {SPAN_TICKS} ticks of the last state under the "
+          f"profiler); against the reference's 33 ms loop budget: {'met' if t['tick'] <= 33.0 else 'missed'}; "
           f"launches {launches} ({ENGINE_LAUNCHES['single robot closed loop']} per tick); finite {fin}; final x "
           f"{float(ws.plant.p[0, 0]):.3f} m; one tick under set_sync_debug_mode('error'): no host sync = "
           f"{sync_err is None}", flush=True)
@@ -1392,7 +1443,8 @@ def single_robot_loop(dev) -> dict:
           f"= knn {parts['knn_topk_kernel']:.4f} (11 launches) + sqp {parts['sqp_solve_kernel']:.4f} (3 launches) + "
           f"other torch ops {busy - sum(parts.values()):.3f}; idle share of the p50 tick {1.0 - busy / t['tick']:.3f}",
           flush=True)
-    return {"ms": t, "ms_task": t_task, "launches": launches, "busy": busy, "parts": parts, "sqp_bound": sqp_bound}
+    return {"ms": t, "ms_task": t_task, "stages": stages, "launches": launches, "busy": busy, "parts": parts,
+            "sqp_bound": sqp_bound}
 
 
 def tf32_world_gate(dev, world_tick) -> None:
@@ -2510,7 +2562,6 @@ def nearest_points_phase(dev, forest_tick) -> dict:
     from avoid_mpc_torch import config
     from avoid_mpc_torch.engine.receding import EngineHyper, EngineParams, engine_init, receding_step
     from avoid_mpc_torch.ops.knn import knn_culled
-    from avoid_mpc_torch.ops.knn_cuda import record_calls
     from avoid_mpc_torch.tools import knn_shapes
     from avoid_mpc_torch.tools import run_montecarlo as mc
     from avoid_mpc_torch.tools import verify_engine as ve
@@ -2548,7 +2599,7 @@ def nearest_points_phase(dev, forest_tick) -> dict:
     torch.cuda.synchronize()
     launches = launch_counts()
     ticks_ms = sorted(ev[i].elapsed_time(ev[i + 1]) for i in range(NPN_TICKS))
-    with record_calls() as log:
+    with record_knn_calls() as log:
         receding_step(state, quad, m, p, h)
     ks = dict(Counter(c[3] for c in log))
     want = {"riccati_backward": 0, "line_search": 0,
@@ -2573,7 +2624,7 @@ def nearest_points_phase(dev, forest_tick) -> dict:
         torch.cuda.synchronize()
         zero_launch_counts()
         t0 = time.perf_counter()
-        with record_calls() as log, contextlib.redirect_stdout(io.StringIO()) as said:
+        with record_knn_calls() as log, contextlib.redirect_stdout(io.StringIO()) as said:
             summary = mc.main(argv)
         torch.cuda.synchronize()
         main_s = time.perf_counter() - t0
@@ -2598,7 +2649,7 @@ def nearest_points_phase(dev, forest_tick) -> dict:
     cfg_w = vw.config(config)
     cfg_w = dataclasses.replace(cfg_w, mpc=dataclasses.replace(cfg_w.mpc, nearest_point_count=NPN))
     gold = dict(np.load(vw.GOLDEN))
-    with record_calls() as log:
+    with record_knn_calls() as log:
         card = vw.run_ticks(gold, dev, cfg_w)
     t0 = time.perf_counter()
     host = vw.run_ticks(gold, "cpu", cfg_w)
@@ -2620,7 +2671,7 @@ def nearest_points_phase(dev, forest_tick) -> dict:
     mp = cfg.mpc
     qs, pts, mask = knn_shapes.make_inputs(knn_shapes.ENGINE_SHAPES["single-robot rescue"][:3] + (NPN, "masked"), dev)
     zero_launch_counts()
-    with record_calls() as log:
+    with record_knn_calls() as log:
         d_c, p_c, ovf = knn_culled(qs, pts, mask, NPN, mp.assoc_radius, mp.assoc_m_max)
     torch.cuda.synchronize()
     n_culled = launch_counts()["knn_topk"]
