@@ -28,6 +28,7 @@ only their own lanes, so each scenario stops at its own update.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 
@@ -139,15 +140,57 @@ def pack_constants(sp: SolverParams, Ad, Bd, cvec) -> torch.Tensor:
     ])
 
 
+CONSTS_CACHE_SIZE = 8  # blocks kept: distinct parameter sets, devices and streams
+_consts_cache: collections.OrderedDict = collections.OrderedDict()
+
+
+def solve_constants(sp: SolverParams) -> torch.Tensor:
+    """``pack_constants(sp, *_affine_dynamics(sp, torch.float32))``, built
+    once per set of parameters: the block depends on nothing else, and its
+    float64 RK4 issues a few hundred small ops.
+
+    The key is what the host knows without reading the card (reading the
+    values would synchronise the stream on every solve): the device, the
+    current stream (an entry is used only on the stream it was made on),
+    and each leaf of ``sp`` as (``id``, in-place ``_version``) for a tensor,
+    the value otherwise.  A ``_replace``d ``SolverParams`` that shares the
+    tensors hits; one built anew, even with equal values, builds once.  An
+    in-place edit of a leaf (or of its base) bumps its version and rebuilds
+    the block; writes that bypass the version counter (``.data``, DLPack)
+    are not seen.  Each entry holds the leaf tensors, so that no ``id`` is
+    reused while it lives; the least recently used of CONSTS_CACHE_SIZE
+    entries goes.  Inference tensors keep no version counter: their block
+    is built on every call and not kept.  Counters: ``sqp_solve.consts_hits``
+    and ``sqp_solve.consts_builds``."""
+    dev = sp.u_lower.device
+    leaves = (sp.dt, *sp.dyn, *sp.cost, sp.u_lower, sp.u_upper)
+    tensors = [t for t in leaves if isinstance(t, torch.Tensor)]
+    if any(t.is_inference() for t in tensors):
+        sqp_solve.consts_builds += 1
+        return pack_constants(sp, *_affine_dynamics(sp, torch.float32))
+    stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
+    key = (dev, stream, *((id(t), t._version) if isinstance(t, torch.Tensor) else t for t in leaves))
+    entry = _consts_cache.pop(key, None)
+    if entry is None:
+        sqp_solve.consts_builds += 1
+        entry = (tensors, pack_constants(sp, *_affine_dynamics(sp, torch.float32)))
+        if len(_consts_cache) >= CONSTS_CACHE_SIZE:
+            _consts_cache.popitem(last=False)
+    else:
+        sqp_solve.consts_hits += 1
+    _consts_cache[key] = entry
+    return entry[1]
+
+
 def sqp_solve(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper = SolverHyper()) -> SolveResult:
     """Batched solve; the semantics of :func:`solve_plain` up to the
     per-scenario exit.  x0 (B,10), us_init (B,N,4), ref (B,N,10),
     obstacles (B,N,K,3), target (B,10).  The kernel is LTI only: on CUDA
     a drag problem is refused (:func:`solve_batched` routes it to
     :func:`solve_plain`, as the reference routes drag to no kernel).
-    Spans: ``solve.affine`` (the float64 affine map), ``solve.pack`` (the
-    constants block and the output buffers), ``solve.launch`` (the
-    kernel's launcher) and ``solve.result``."""
+    Spans: ``solve.consts`` (:func:`solve_constants`: the constants block,
+    built on a miss), ``solve.pack`` (the output buffers), ``solve.launch``
+    (the kernel's launcher) and ``solve.result``."""
     if not us_init.is_cuda:
         return solve_plain(problems, us_init, sp, hp)
     if sp.dyn.use_drag:
@@ -170,10 +213,9 @@ def sqp_solve(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper =
             f"{tuple(x0.shape)}, {tuple(us_init.shape)}, {tuple(ref.shape)}, {tuple(obs.shape)}, {tuple(target.shape)}"
         )
 
-    with span("solve.affine"):
-        Ad, Bd, cvec = _affine_dynamics(sp, torch.float32)
+    with span("solve.consts"):
+        consts = solve_constants(sp)
     with span("solve.pack"):
-        consts = pack_constants(sp, Ad, Bd, cvec)
         us = torch.empty((b, n, NU), dtype=torch.float32, device=dev)
         xs = torch.empty((b, n + 1, NX), dtype=torch.float32, device=dev)
         stats = torch.empty((4, b), dtype=torch.float32, device=dev)  # cost, grad_norm, reg, updates
@@ -199,6 +241,8 @@ def sqp_solve(problems: MPCProblem, us_init, sp: SolverParams, hp: SolverHyper =
 
 
 sqp_solve.launches = 0
+sqp_solve.consts_hits = 0
+sqp_solve.consts_builds = 0
 _update_log: list | None = None
 
 

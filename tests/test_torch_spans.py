@@ -10,7 +10,7 @@ CPU, and their clock on the card:
   profiler's clock;
 - the span trees of ``step.solve_step``, ``ingest_step``,
   ``receding_step`` and ``world_step_full`` (the plain solve on the CPU:
-  ``solve`` without ``solve.affine`` / ``pack`` / ``launch``);
+  ``solve`` without ``solve.consts`` / ``pack`` / ``launch``);
 - the benchmark's span readers and ``tools/trace_report --spans`` on
   hand-written spans and traces;
 - on the card (``-m card``; skipped without one): a lone kernel starts
@@ -300,7 +300,7 @@ def _synthetic(ring, top: str, ticks: int, children) -> None:
         t = start + 20 * MS
 
 
-BATCH_TICK = [("step.assoc", None, 1), ("solve", None, 4), ("solve.affine", "solve", 1),
+BATCH_TICK = [("step.assoc", None, 1), ("solve", None, 4), ("solve.consts", "solve", 1),
               ("solve.launch", "solve", 0.5)]
 SINGLE_TICK = [("perception", None, 2), ("mapping", None, 1), ("engine", None, 6), ("engine.guard", "engine", 1),
                ("engine.assoc", "engine", 1.5), ("engine.solve", "engine", 2), ("solve", "engine.solve", 1.5),
