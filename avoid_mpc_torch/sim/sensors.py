@@ -96,9 +96,12 @@ def _ray_sphere(o, d, c, r):
 def render_depth(Twc: torch.Tensor, field: ObstacleField, pcfg: PerceptionConfig, height: int | None = None,
                  width: int | None = None, generator: torch.Generator | None = None) -> torch.Tensor:
     """Planar-depth frames (B, h, w) from camera poses Twc (B, 4, 4).  With
-    ``generator``, Gaussian noise of sigma ``depth_std_dev`` is added."""
+    ``generator``, Gaussian noise of sigma ``depth_std_dev`` is added.
+    Counter: ``render_depth.tests`` adds the call's ray-primitive tests,
+    rays times primitive slots (B * h * w * (Kc + Ks)), from the shapes."""
     h = height or pcfg.height
     w = width or pcfg.width
+    render_depth.tests += Twc.shape[0] * h * w * (field.cyl_r.shape[-1] + field.sph_r.shape[-1])
     dtype, dev = Twc.dtype, Twc.device
     scale_u, scale_v = pcfg.width / w, pcfg.height / h
     fx, fy = pcfg.fx / scale_u, pcfg.fy / scale_v
@@ -119,6 +122,9 @@ def render_depth(Twc: torch.Tensor, field: ObstacleField, pcfg: PerceptionConfig
     if generator is not None:
         depth = depth + pcfg.depth_std_dev * torch.randn(depth.shape, generator=generator, dtype=dtype, device=dev)
     return depth
+
+
+render_depth.tests = 0
 
 
 class CameraRig(NamedTuple):

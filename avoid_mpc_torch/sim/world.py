@@ -160,7 +160,11 @@ class WorldDiag(NamedTuple):
     clearance: torch.Tensor  # analytic distance to the obstacle field
     u_cmd: torch.Tensor  # (B, 4) engine acceleration command
     hover_pct: torch.Tensor  # live gravity / thr2acc estimate
-    converged: torch.Tensor  # the engine's last solve certified (not in the JAX diagnostics)
+    # not in the JAX diagnostics:
+    converged: torch.Tensor  # the engine's last solve certified
+    attitude: torch.Tensor  # (B, 4) bfctrl's attitude command (quaternion); its thrust is the state's prev_thrust
+    need_replan: torch.Tensor  # the engine's need_replan
+    outer_iters: torch.Tensor  # (B,) int64 the engine's outer iterations that ran a solve
 
 
 def world_init(cfg: EngineConfig, params: WorldParams, hyper: WorldHyper, start_xy: torch.Tensor) -> WorldState:
@@ -206,7 +210,9 @@ def world_step_full(ws: WorldState, field: ObstacleField, params: WorldParams, h
     (``use_depth_noise``) and the IMU noise (``use_imu_estimation``).
     Spans, one per stage: ``render``, ``perception``, ``mapping``,
     ``engine`` (the mission FSM, the state prediction and the engine) and
-    ``control`` (bfctrl and the plant)."""
+    ``control``, which holds ``control.bfctrl`` (the command, bfctrl and the
+    geometric controller) and ``control.plant`` (the 6-DoF plant's
+    substeps)."""
     if (hyper.use_depth_noise or hyper.use_imu_estimation) and generator is None:
         raise ValueError("world_step: depth or IMU noise needs a torch.Generator on the world's device")
     plant = ws.plant
@@ -272,31 +278,33 @@ def world_step_full(ws: WorldState, field: ObstacleField, params: WorldParams, h
         engine_state = select_where(in_task, engine_new, ws.engine)
 
     with span("control"):
-        z3 = torch.zeros((b, 3), dtype=dtype, device=dev)
-        zero = torch.zeros(b, dtype=dtype, device=dev)
-        unit_q = torch.cat([torch.ones((b, 1), dtype=dtype, device=dev), z3], dim=-1)
-        cmd = CommandInput(
-            mode=torch.full((b,), CMD_ACCELERATION, dtype=torch.int64, device=dev), p=z3, v=z3, a=out.u_cmd[:, 0:3],
-            w=z3, q=unit_q, yaw=zero, yaw_rate=out.u_cmd[:, 3], thrust=zero,
-            age=torch.where(in_task, 0.0, torch.inf).to(dtype),
-        )
+        with span("control.bfctrl"):
+            z3 = torch.zeros((b, 3), dtype=dtype, device=dev)
+            zero = torch.zeros(b, dtype=dtype, device=dev)
+            unit_q = torch.cat([torch.ones((b, 1), dtype=dtype, device=dev), z3], dim=-1)
+            cmd = CommandInput(
+                mode=torch.full((b,), CMD_ACCELERATION, dtype=torch.int64, device=dev), p=z3, v=z3,
+                a=out.u_cmd[:, 0:3], w=z3, q=unit_q, yaw=zero, yaw_rate=out.u_cmd[:, 3], thrust=zero,
+                age=torch.where(in_task, 0.0, torch.inf).to(dtype),
+            )
 
-        # --- 5: bfctrl, fed the IMU body specific force and last tick's
-        # applied throttle (the thrust RLS's regressors) ---
-        spec_f = torch.cat([plant.a_lin[:, :2], plant.a_lin[:, 2:] + GRAVITY], dim=-1)
-        accel_body = rotate_transposed(R_wb, spec_f)
-        ctrl_new, u, _des, status, hover_pct = bfctrl_step(
-            ws.ctrl, t, plant.p, plant.v, plant.q, cmd, torch.where(mission == MISSION_LAND, LAND_CMD, 0), zero,
-            torch.full((b,), torch.inf, dtype=dtype, device=dev), torch.zeros((b, 2), dtype=dtype, device=dev),
-            params.bfctrl, imu_a=accel_body, vfr=VfrHudInput(throttle=ws.prev_thrust, age=zero),
-        )
+            # --- 5: bfctrl, fed the IMU body specific force and last tick's
+            # applied throttle (the thrust RLS's regressors) ---
+            spec_f = torch.cat([plant.a_lin[:, :2], plant.a_lin[:, 2:] + GRAVITY], dim=-1)
+            accel_body = rotate_transposed(R_wb, spec_f)
+            ctrl_new, u, _des, status, hover_pct = bfctrl_step(
+                ws.ctrl, t, plant.p, plant.v, plant.q, cmd, torch.where(mission == MISSION_LAND, LAND_CMD, 0), zero,
+                torch.full((b,), torch.inf, dtype=dtype, device=dev), torch.zeros((b, 2), dtype=dtype, device=dev),
+                params.bfctrl, imu_a=accel_body, vfr=VfrHudInput(throttle=ws.prev_thrust, age=zero),
+            )
 
         # --- 6: the plant ---
-        plant_new = sixdof_step(plant, u.q, u.thrust, params.con_dt, params.plant)
+        with span("control.plant"):
+            plant_new = sixdof_step(plant, u.q, u.thrust, params.con_dt, params.plant)
 
     diag = WorldDiag(p=plant.p, v=plant.v, mission=mission, bf_status=status, is_safety=out.is_safety | ~in_task,
                      clearance=field_clearance(plant.p, field), u_cmd=out.u_cmd, hover_pct=hover_pct,
-                     converged=out.converged)
+                     converged=out.converged, attitude=u.q, need_replan=out.need_replan, outer_iters=out.outer_iters)
     new = WorldState(plant=plant_new, ctrl=ctrl_new, engine=engine_state, map=m, mission=mission, t=t, cog=cog,
                      imu_bias=imu_bias, prev_thrust=u.thrust)
     return new, diag, depth, Twb, x_pred, aux

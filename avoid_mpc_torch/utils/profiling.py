@@ -9,7 +9,7 @@
 - :func:`span`: the program's spans, host time per layer on the
   profiler's clock, recorded only while a ``torch.profiler`` session
   records (:func:`spans`, :func:`span_totals`, :func:`attribute_idle`
-  read them);
+  and :func:`attribute_busy` read them);
 - :func:`trace`: a ``torch.profiler`` session written as a Chrome trace,
   the spans on a track of their own;
 - :func:`profiled`: the one place that repeats a profiler session which
@@ -26,6 +26,7 @@
 
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
 import json
@@ -292,6 +293,53 @@ def device_intervals(prof) -> list[tuple[int, int]]:
     base = prof.profiler.kineto_results.trace_start_ns()
     return [(base + round(e.time_range.start * 1e3), base + round(e.time_range.end * 1e3)) for e in prof.events()
             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+
+
+def device_launches(prof) -> list[tuple[int | None, int, int]]:
+    """The device operations of a finished ``torch.profiler`` session as
+    (launch_ns, start_ns, end_ns) on the spans' clock: ``launch_ns`` is the
+    start of the runtime call that issued the operation (the host event
+    named ``cu...`` with the operation's correlation id), None where the
+    session kept no such call.  The session's ``kineto_results`` must be
+    those its events came from: a session with no schedule, or a scheduled
+    one of a single cycle (``repeat=1``); after a repeating schedule they
+    are the next, empty cycle's, off the events' clock."""
+    from torch.autograd import DeviceType
+
+    base = prof.profiler.kineto_results.trace_start_ns()
+    ops, calls = [], {}
+    for e in prof.events():
+        if getattr(e, "is_user_annotation", False):
+            continue
+        if e.device_type == DeviceType.CUDA:
+            ops.append(e)
+        elif e.name.startswith("cu"):
+            calls.setdefault(e.id, base + round(e.time_range.start * 1e3))
+    return [(calls.get(e.id), base + round(e.time_range.start * 1e3), base + round(e.time_range.end * 1e3))
+            for e in ops]
+
+
+def attribute_busy(prof, records, names=None) -> dict[str, float]:
+    """Seconds of the device's work, each operation put down to the span
+    that was innermost on the host when the runtime call that launched it
+    ran (:func:`device_launches`: the call is joined to its operation by
+    correlation id), whenever the operation ran.  With ``names``, only the
+    spans so named count (an operation goes to the innermost of those).
+    Operations launched in no span, or whose call the session lost, count
+    as :data:`OUTSIDE`.  Each operation counts its whole duration: the
+    parts sum to the operations' durations, which on one stream is the
+    device's busy time."""
+    pieces = _innermost([r for r in records if names is None or r.name in names])
+    starts = [p[0] for p in pieces]
+    out: dict[str, int] = collections.defaultdict(int)
+    for launch, s, e in device_launches(prof):
+        name = OUTSIDE
+        if launch is not None:
+            i = bisect.bisect_right(starts, launch) - 1
+            if i >= 0 and launch < pieces[i][1]:
+                name = pieces[i][2]
+        out[name] += e - s
+    return {k: v * 1e-9 for k, v in out.items()}
 
 
 def export_trace(prof, path: str) -> None:

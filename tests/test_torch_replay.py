@@ -51,7 +51,7 @@ def test_flight_recorder_round_trip(tmp_path):
     rows = []
     for k in range(3):
         diag = tw.WorldDiag(*(torch.full((2,) + s, float(k + i)) for i, s in enumerate(
-            [(3,), (3,), (), (), (), (), (4,), (), ()])))
+            [(3,), (3,), (), (), (), (), (4,), (), (), (4,), (), ()])))
         rec.record(diag)
         rows.append(diag)
     assert len(rec) == 3

@@ -270,6 +270,7 @@ def test_world_step_full_span_tree(recording):
     tw.world_step_full(ws, field, params, hyper, torch.Generator().manual_seed(0))
     want = _engine_tree("engine", cfg.mpc.mpc_max_iter)
     want.update({(None, s): 1 for s in ("render", "perception", "mapping", "engine", "control")})
+    want.update({("control", "control.bfctrl"): 1, ("control", "control.plant"): 1})
     assert tree(spans()) == want
 
 
