@@ -15,10 +15,11 @@ lidar (port of ``avoid_mpc_tpu/sim/sensors.py``).
 - **Lidar**: a rotating multi-channel head (VLP-16 by default) raycast
   against the same field; world-frame points with a hit mask.
 
-Every ray of every scenario is one element of a (B, H*W, K) intersection
-per object kind, reduced over K at once; the dot products against
-world-scale offsets are broadcast products, never ``matmul``, so TF32
-cannot touch them.
+In the plain path every ray of every scenario is one element of a
+(B, H*W, K) intersection per object kind, reduced over K at once; the dot
+products against world-scale offsets are broadcast products, never
+``matmul``, so TF32 cannot touch them.  On the card the depth camera is one
+kernel (``sim/render_cuda.py``), equal to the plain path bit for bit.
 
 Noise comes from an explicit ``torch.Generator`` on the tensors' device,
 drawn batch-wide; without one a sensor returns its noise-free part.  It
@@ -34,6 +35,7 @@ import torch
 
 from avoid_mpc_torch.config import GRAVITY, LidarConfig, PerceptionConfig
 from avoid_mpc_torch.device import resolve_device
+from avoid_mpc_torch.sim.render_cuda import RaycastInputs, render_raycast
 from avoid_mpc_torch.utils.quaternion import compose_tf, quat_to_rotmat, rotate, rotate_transposed
 
 
@@ -62,14 +64,28 @@ class ObstacleField(NamedTuple):
         )
 
 
+def _cylinder_terms(o, cxy, r):
+    """Per (scenario, cylinder): the origins' xy less the axes fo (B, K, 2)
+    and |fo|^2 - r^2 (B, K), for origins o (B, 3)."""
+    fo = o[:, None, 0:2] - cxy
+    return fo, torch.sum(fo * fo, dim=-1) - r ** 2
+
+
+def _sphere_terms(o, c, r):
+    """Per (scenario, sphere): the origins less the centres f (B, K, 3) and
+    |f|^2 - r^2 (B, K), for origins o (B, 3)."""
+    f = o[:, None, :] - c
+    return f, torch.sum(f * f, dim=-1) - r ** 2
+
+
 def _ray_cylinder(o, d, cxy, r):
     """Smallest t > 1e-4 with |(o + t d)_xy - c| = r, else inf: origins o
     (B, 3), rays d (B, R, 3), axes cxy (B, K, 2), radii r (B, K) -> (B, R, K)."""
     dxy = d[..., 0:2]
     a = torch.sum(dxy * dxy, dim=-1)[..., None]  # (B, R, 1)
-    fo = o[:, None, 0:2] - cxy  # (B, K, 2)
+    fo, c = _cylinder_terms(o, cxy, r)
     b2 = 2.0 * (dxy[..., 0:1] * fo[:, None, :, 0] + dxy[..., 1:2] * fo[:, None, :, 1])
-    c = (torch.sum(fo * fo, dim=-1) - r ** 2)[:, None, :]
+    c = c[:, None, :]
     disc = b2 * b2 - 4.0 * a * c
     sq = torch.sqrt(torch.clamp_min(disc, 0.0))
     two_a = torch.clamp_min(2.0 * a, 1e-12)
@@ -82,9 +98,9 @@ def _ray_cylinder(o, d, cxy, r):
 def _ray_sphere(o, d, c, r):
     """Smallest t > 1e-4 on the spheres (centres c (B, K, 3), radii r
     (B, K)) for origins o (B, 3) and unit-z-camera rays d (B, R, 3) -> (B, R, K)."""
-    f = o[:, None, :] - c  # (B, K, 3)
+    f, cc = _sphere_terms(o, c, r)
     b2 = 2.0 * (d[..., 0:1] * f[:, None, :, 0] + d[..., 1:2] * f[:, None, :, 1] + d[..., 2:3] * f[:, None, :, 2])
-    cc = (torch.sum(f * f, dim=-1) - r ** 2)[:, None, :]
+    cc = cc[:, None, :]
     disc = b2 * b2 - 4.0 * cc
     sq = torch.sqrt(torch.clamp_min(disc, 0.0))
     t0 = (-b2 - sq) / 2.0
@@ -93,23 +109,59 @@ def _ray_sphere(o, d, c, r):
     return torch.where((disc > 0.0) & (t > 1e-4), t, torch.inf)
 
 
-def render_depth(Twc: torch.Tensor, field: ObstacleField, pcfg: PerceptionConfig, height: int | None = None,
-                 width: int | None = None, generator: torch.Generator | None = None) -> torch.Tensor:
-    """Planar-depth frames (B, h, w) from camera poses Twc (B, 4, 4).  With
-    ``generator``, Gaussian noise of sigma ``depth_std_dev`` is added.
-    Counter: ``render_depth.tests`` adds the call's ray-primitive tests,
-    rays times primitive slots (B * h * w * (Kc + Ks)), from the shapes."""
-    h = height or pcfg.height
-    w = width or pcfg.width
-    render_depth.tests += Twc.shape[0] * h * w * (field.cyl_r.shape[-1] + field.sph_r.shape[-1])
-    dtype, dev = Twc.dtype, Twc.device
+def _pixel_rays(pcfg: PerceptionConfig, h: int, w: int, dtype, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """The camera ray (u, v, 1) of each pixel of an h x w frame at the
+    configured intrinsics, scaled: u (w,) per column, v (h,) per row."""
     scale_u, scale_v = pcfg.width / w, pcfg.height / h
     fx, fy = pcfg.fx / scale_u, pcfg.fy / scale_v
     cx, cy = pcfg.cx / scale_u, pcfg.cy / scale_v
+    u = (torch.arange(w, dtype=dtype, device=dev) - cx) / fx
+    v = (torch.arange(h, dtype=dtype, device=dev) - cy) / fy
+    return u, v
 
-    u = (torch.arange(w, dtype=dtype, device=dev)[None, :] - cx) / fx
-    v = (torch.arange(h, dtype=dtype, device=dev)[:, None] - cy) / fy
-    du, dv = u.expand(h, w).reshape(-1), v.expand(h, w).reshape(-1)  # (R,): the camera ray is (du, dv, 1)
+
+def raycast_inputs(Twc: torch.Tensor, field: ObstacleField, pcfg: PerceptionConfig, h: int, w: int,
+                   generator: torch.Generator | None = None) -> RaycastInputs:
+    """What the raycast kernel (``sim/render_cuda.py``) reads for
+    :func:`render_depth`: the pixel rays and the per-primitive terms by the
+    plain path's own expressions, and the noise drawn as the plain path
+    draws it (same generator, shape, dtype and device, the call's only
+    draw), so the generator's stream is the plain path's."""
+    o = Twc[:, :3, 3]
+    fo, c = _cylinder_terms(o, field.cyl_xy, field.cyl_r)
+    f, cc = _sphere_terms(o, field.sph_c, field.sph_r)
+    noise = None
+    if generator is not None:
+        noise = torch.randn((Twc.shape[0], h, w), generator=generator, dtype=Twc.dtype, device=Twc.device)
+    return RaycastInputs(Twc.contiguous(), *_pixel_rays(pcfg, h, w, Twc.dtype, Twc.device), fo, c,
+                         field.cyl_mask.contiguous(), f, cc, field.sph_mask.contiguous(), noise,
+                         2.0 * pcfg.depth_max, pcfg.depth_std_dev)
+
+
+def render_depth(Twc: torch.Tensor, field: ObstacleField, pcfg: PerceptionConfig, height: int | None = None,
+                 width: int | None = None, generator: torch.Generator | None = None) -> torch.Tensor:
+    """Planar-depth frames (B, h, w) from camera poses Twc (B, 4, 4).  With
+    ``generator``, Gaussian noise of sigma ``depth_std_dev`` is added.  A
+    CUDA pose launches the raycast kernel (``sim/render_cuda.py``; float32
+    only, it raises on anything else), a CPU pose takes
+    :func:`render_depth_plain`, its twin.  Counter: ``render_depth.tests``
+    adds the call's ray-primitive tests, rays times primitive slots
+    (B * h * w * (Kc + Ks)), from the shapes."""
+    h = height or pcfg.height
+    w = width or pcfg.width
+    render_depth.tests += Twc.shape[0] * h * w * (field.cyl_r.shape[-1] + field.sph_r.shape[-1])
+    if Twc.is_cuda:
+        return render_raycast(raycast_inputs(Twc, field, pcfg, h, w, generator))
+    return render_depth_plain(Twc, field, pcfg, h, w, generator)
+
+
+def render_depth_plain(Twc: torch.Tensor, field: ObstacleField, pcfg: PerceptionConfig, h: int, w: int,
+                       generator: torch.Generator | None = None) -> torch.Tensor:
+    """:func:`render_depth` in plain PyTorch on any device: every ray
+    against every primitive slot as (B, h*w, K) tensors, then the minimum."""
+    dtype, dev = Twc.dtype, Twc.device
+    u, v = _pixel_rays(pcfg, h, w, dtype, dev)
+    du, dv = u.expand(h, w).reshape(-1), v[:, None].expand(h, w).reshape(-1)  # (R,): the camera ray is (du, dv, 1)
     R, o = Twc[:, :3, :3], Twc[:, :3, 3]
     dirs = torch.stack([du * R[:, i, 0:1] + dv * R[:, i, 1:2] + R[:, i, 2:3] for i in range(3)], dim=-1)
 

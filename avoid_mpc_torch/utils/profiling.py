@@ -389,7 +389,7 @@ def trace(logdir: str):
     export_trace(prof, os.path.join(logdir, "trace.json"))
 
 
-KERNELS = ("knn_topk", "sqp_solve", "riccati_backward", "line_search")  # wrappers with a launch count
+KERNELS = ("knn_topk", "sqp_solve", "riccati_backward", "line_search", "render_raycast")  # wrappers with a launch count
 PROFILE_TRIES = 4  # a profiler session can lose kernel records; :func:`profiled` repeats it
 
 
@@ -397,11 +397,13 @@ def kernel_launches() -> dict[str, int]:
     """The launch count of each kernel wrapper (each adds one where it
     launches its kernel)."""
     from avoid_mpc_torch.ops.knn_cuda import knn_topk
+    from avoid_mpc_torch.sim.render_cuda import render_raycast
     from avoid_mpc_torch.solver.backward_cuda import riccati_backward
     from avoid_mpc_torch.solver.forward_cuda import line_search
     from avoid_mpc_torch.solver.sqp_cuda import sqp_solve
 
-    return dict(zip(KERNELS, (f.launches for f in (knn_topk, sqp_solve, riccati_backward, line_search))))
+    wrappers = (knn_topk, sqp_solve, riccati_backward, line_search, render_raycast)
+    return dict(zip(KERNELS, (f.launches for f in wrappers)))
 
 
 def launches_of(fn: Callable):

@@ -119,6 +119,13 @@ ticks, once with the fused solve and once with the per-phase solve
     chained ticks from the ground timed against the reference's 33 ms and
     split by stage (spans), 11 k-NN and 3 SQP launches per tick, finite
     states, device time, idle share and SQP bound, no host sync;
+16b. the depth render's raycast kernel (``csrc/render.cu``) at the fleet's
+    shape (B=64, 640x480, 24 cylinder slots and one sphere slot, some of
+    each masked): ``render_depth`` on the card equal to
+    ``render_depth_plain`` on the card bit for bit, with and without noise
+    from one generator state, one launch a call; the kernel's time (its
+    profiler records) against ``benchmark/yardstick_render.bound_ms``,
+    beside the whole call's and the plain path's (CUDA events);
 17. the scale-out (``tools/dryrun_multichip``'s 8 slots on the card, a 4 x
     2 mesh, the flagship shapes): one sharded step (4 SQP launches of
     B=1024, 2 k-NN launches of B=1, Q=4096, P=4096 and the association)
@@ -749,9 +756,11 @@ SR_TICKS = 10  # single-robot ticks timed
 GATE_TICKS = 3  # ticks held against the references (verify_engine.TICKS_GOLD)
 ENGINE_LAUNCHES = {"forest_10k": {"knn_topk": 6, "sqp_solve": 3},  # per tick: 3 x (edge + association), 3 solves
                    "single robot": {"knn_topk": 11, "sqp_solve": 3},  # + prune, dedupe; culled: candidates + rescue
-                   "fleet closed loop": {"knn_topk": 8, "sqp_solve": 3},  # the engine's 6 + the map's prune, dedupe
-                   "single robot closed loop": {"knn_topk": 11, "sqp_solve": 3},
-                   "vehicle link ingest": {"knn_topk": 11, "sqp_solve": 3}}  # phase 18c: phase 12's stages
+                   # the engine's 6 + the map's prune, dedupe; the depth camera's render
+                   "fleet closed loop": {"knn_topk": 8, "sqp_solve": 3, "render_raycast": 1},
+                   "single robot closed loop": {"knn_topk": 11, "sqp_solve": 3, "render_raycast": 1},
+                   # phase 18c: phase 12's stages, and the frame it renders
+                   "vehicle link ingest": {"knn_topk": 11, "sqp_solve": 3, "render_raycast": 1}}
 FLEET_B, FLEET_TICKS = 64, 300  # phase 15: the README's campaign (run_montecarlo --batch 64 --ticks 300)
 SR_LOOP_WARMUP, SR_LOOP_TICKS = 2, 90  # phase 16: ticks not timed, then timed (about half of them in TASK)
 INGEST_MARKS = ("depth", "map", "engine")  # tools/vehicle_link.ingest_step's marks
@@ -765,13 +774,23 @@ def launch_counts() -> dict:
     return kernel_launches()
 
 
+def want_launches(per_tick: dict, ticks: int = 1) -> dict:
+    """``launch_counts()`` after ``ticks`` ticks of ``per_tick`` launches
+    (wrapper name -> launches a tick; a wrapper left out launches none)."""
+    from avoid_mpc_torch.utils.profiling import KERNELS
+
+    return {k: per_tick.get(k, 0) * ticks for k in KERNELS}
+
+
 def zero_launch_counts() -> None:
     from avoid_mpc_torch.ops.knn_cuda import knn_topk
+    from avoid_mpc_torch.sim.render_cuda import render_raycast
     from avoid_mpc_torch.solver.backward_cuda import riccati_backward
     from avoid_mpc_torch.solver.forward_cuda import line_search
     from avoid_mpc_torch.solver.sqp_cuda import sqp_solve
 
-    knn_topk.launches = sqp_solve.launches = riccati_backward.launches = line_search.launches = 0
+    for f in (knn_topk, sqp_solve, riccati_backward, line_search, render_raycast):
+        f.launches = 0
 
 
 @contextlib.contextmanager
@@ -943,7 +962,7 @@ def engine_forest(dev) -> dict:
         ev[i + 1].record()
     torch.cuda.synchronize()
     launches = launch_counts()
-    want = {"riccati_backward": 0, "line_search": 0, **{k: v * TICKS for k, v in ENGINE_LAUNCHES["forest_10k"].items()}}
+    want = want_launches(ENGINE_LAUNCHES["forest_10k"], TICKS)
     check(launches == want, f"forest_10k launch counts {launches} != {want}")
     ticks_ms = sorted(ev[i].elapsed_time(ev[i + 1]) for i in range(TICKS))
     p50 = ticks_ms[TICKS // 2]
@@ -1075,8 +1094,7 @@ def engine_single_robot(dev) -> dict:
         e[3].record()
     torch.cuda.synchronize()
     launches = launch_counts()
-    want = {"riccati_backward": 0, "line_search": 0,
-            **{k: v * SR_TICKS for k, v in ENGINE_LAUNCHES["single robot"].items()}}
+    want = want_launches(ENGINE_LAUNCHES["single robot"], SR_TICKS)
 
     def whole_tick():
         frame = process_depth_frame(depth, Twb, cam)
@@ -1343,8 +1361,7 @@ def fleet_campaign(dev) -> dict:
         torch.cuda.synchronize()
         tracker.update((time.perf_counter() - t0) / args.chunk)
     launches = launch_counts()
-    want = {"riccati_backward": 0, "line_search": 0,
-            **{k: v * FLEET_TICKS for k, v in ENGINE_LAUNCHES["fleet closed loop"].items()}}
+    want = want_launches(ENGINE_LAUNCHES["fleet closed loop"], FLEET_TICKS)
     check(launches == want, f"fleet launch counts {launches} != {want}")
     t = _tick_p50(evs)
     fin = _finite_floats(ws)
@@ -1381,6 +1398,80 @@ def fleet_campaign(dev) -> dict:
             "tick": (ws, camp.fields, params, h)}
 
 
+RENDER_B, RENDER_KC, RENDER_KS = 64, 24, 1  # phase 16b: the fleet's render
+RENDER_REPS, RENDER_PLAIN_REPS = 20, 3
+
+
+def render_phase(dev) -> dict:
+    """Phase 16b: the raycast kernel at the fleet's shape against the plain
+    path on the card, bit for bit with and without noise, one launch a
+    ``render_depth`` call; its time against its bound."""
+    import torch
+
+    from avoid_mpc_torch.config import PerceptionConfig
+    from avoid_mpc_torch.sim import sensors as sn
+    from avoid_mpc_torch.sim.render_cuda import render_raycast
+    from avoid_mpc_torch.utils.quaternion import compose_tf
+
+    sys.path.insert(0, str(ROOT / "benchmark"))
+    import yardstick_render
+
+    pc = PerceptionConfig()
+    b, h, w, kc, ks = RENDER_B, pc.height, pc.width, RENDER_KC, RENDER_KS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1619)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    field = sn.ObstacleField.empty(n_cyl=kc, n_sph=ks, batch=b, device=dev)._replace(
+        cyl_xy=torch.stack([2.0 + 38.0 * rand(b, kc), 16.0 * rand(b, kc) - 8.0], -1), cyl_r=0.15 + 0.45 * rand(b, kc),
+        cyl_mask=rand(b, kc) > 0.1, sph_c=torch.stack([3.0 + 9.0 * rand(b, ks), 4.0 * rand(b, ks) - 2.0,
+                                                       0.5 + 2.0 * rand(b, ks)], -1),
+        sph_r=0.3 + 0.6 * rand(b, ks), sph_mask=rand(b, ks) > 0.5)
+    yaw, pitch = 0.6 * rand(b) - 0.3, 0.2 * rand(b) - 0.1
+    cy, sy, cp, sp = torch.cos(yaw), torch.sin(yaw), torch.cos(pitch), torch.sin(pitch)
+    z = torch.zeros_like(yaw)
+    Twb = torch.eye(4, device=dev).repeat(b, 1, 1)
+    Twb[:, :3, :3] = torch.stack([torch.stack([cy * cp, -sy, cy * sp], -1), torch.stack([sy * cp, cy, sy * sp], -1),
+                                  torch.stack([-sp, z, cp], -1)], 1)
+    Twb[:, 0, 3], Twb[:, 2, 3] = 2.0 * rand(b), 1.0 + rand(b)
+    Twc = compose_tf(Twb, torch.tensor(pc.Tbc, device=dev))
+
+    diffs, launched = [], []
+    for noisy in (False, True):
+        g_k = g_p = None
+        if noisy:
+            g_k, g_p = torch.Generator(device=dev), torch.Generator(device=dev)
+            g_k.manual_seed(7)
+            g_p.manual_seed(7)
+        n0 = render_raycast.launches
+        got = sn.render_depth(Twc, field, pc, h, w, g_k)
+        launched.append(render_raycast.launches - n0)
+        want = sn.render_depth_plain(Twc, field, pc, h, w, g_p)
+        torch.cuda.synchronize()
+        diffs.append(int((got != want).sum()))
+        hit_share = float((want < pc.depth_max).float().mean())
+        del want
+    check(diffs == [0, 0] and launched == [1, 1],
+          f"16b render kernel vs plain on the card (clean, noisy): {diffs} entries differ, launches {launched}")
+
+    x = sn.raycast_inputs(Twc, field, pc, h, w, gen)
+    kernel = kernel_ms(lambda: render_raycast(x), "render_raycast", RENDER_REPS)
+    call = cuda_ms(lambda: sn.render_depth(Twc, field, pc, h, w, gen), RENDER_REPS)
+    plain = cuda_ms(lambda: sn.render_depth_plain(Twc, field, pc, h, w, gen), RENDER_PLAIN_REPS)
+    torch.cuda.empty_cache()
+    tests = b * h * w * (kc + ks)
+    bound, by = yardstick_render.bound_ms(tests, b, h, w, kc, ks)
+    print(f"phase 16b render kernel at B={b}, {w}x{h}, {kc} + {ks} slots ({int(field.cyl_mask.sum())} live cylinders, "
+          f"{int(field.sph_mask.sum())} live spheres; hit share {hit_share:.3f}): equal to the plain path bit for bit "
+          f"(clean, noisy: {diffs} entries differ), {launched} launches; kernel {kernel:.4f} ms, bound {bound:.4f} ms "
+          f"({by}, {100.0 * bound / kernel:.2f}% of its roofline), render_depth call {call:.4f} ms, plain "
+          f"{plain:.3f} ms", flush=True)
+    return {"ms": kernel, "call_ms": call, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "max_abs_err": 0.0 if diffs == [0, 0] else None, "launches": sum(launched)}
+
+
 def single_robot_loop(dev) -> dict:
     """Phase 16: the single robot at full fidelity, the JAX package's
     ``tools/bench_single_robot.py`` geometry: a 640x480 render with depth
@@ -1412,8 +1503,7 @@ def single_robot_loop(dev) -> dict:
         missions.append(diag.mission)
     torch.cuda.synchronize()
     launches = launch_counts()
-    want = {"riccati_backward": 0, "line_search": 0,
-            **{k: v * SR_LOOP_TICKS for k, v in ENGINE_LAUNCHES["single robot closed loop"].items()}}
+    want = want_launches(ENGINE_LAUNCHES["single robot closed loop"], SR_LOOP_TICKS)
     check(launches == want, f"single robot closed loop launch counts {launches} != {want}")
     in_task = [i for i, m in enumerate(torch.cat(missions).tolist()) if m == MISSION_TASK]
     t = _tick_p50(evs)
@@ -1520,7 +1610,7 @@ def scale_out(dev, smi: str) -> dict:
     sharded = dm.sharded_step(d)
     torch.cuda.synchronize()
     launches = launch_counts()
-    want = {"knn_topk": n_p + 1, "sqp_solve": n_s, "riccati_backward": 0, "line_search": 0}
+    want = want_launches({"knn_topk": n_p + 1, "sqp_solve": n_s})
     check(launches == want, f"scale-out step launch counts {launches} != {want}")
     r = dm.compare(sharded, dm.unsharded_step(d))
     for gate, ok in r["gates"].items():
@@ -1812,8 +1902,7 @@ def ingest_chain(dev) -> dict:
         launches = launch_counts()
         dropped = chain.ring.dropped
         whole = (home, odom, depth, m, state)
-    want = {"riccati_backward": 0, "line_search": 0,
-            **{k: v * INGEST_TICKS for k, v in ENGINE_LAUNCHES["vehicle link ingest"].items()}}
+    want = want_launches(ENGINE_LAUNCHES["vehicle link ingest"], INGEST_TICKS)
     check(launches == want, f"18c ingest launch counts {launches} != {want}")
     box = control_box_ok(out, params.engine.sp)
     fin = _finite_floats((state, m))
@@ -2041,14 +2130,15 @@ TOOL_LAUNCHES = {  # kernel launches of one call (profile_solver) or one iterati
                      "replay_12ms": {"knn_topk": 11, "sqp_solve": 3}},  # replay: per tick, the single robot's
     # attribute_tick: ingest is the map's prune + dedupe, engine the culled tick's 3 x (edge + candidates +
     # rescue): together phase 12's 11 k-NN and 3 SQP a tick
-    "attribute_tick": {"render": {}, "ingest": {"knn_topk": 2}, "assoc_brute": {"knn_topk": 1},
+    "attribute_tick": {"render": {"render_raycast": 1}, "ingest": {"knn_topk": 2}, "assoc_brute": {"knn_topk": 1},
                        "assoc_culled": {"knn_topk": 2}, "guard": {"knn_topk": 1}, "solve": {"sqp_solve": 1},
                        "engine": {"knn_topk": 9, "sqp_solve": 3}, "ctrl_plant": {},
                        "forest_assoc_brute_b1024": {"knn_topk": 1}, "forest_assoc_culled_b1024": {"knn_topk": 1},
                        "forest_guard_b1024": {"knn_topk": 1}, "forest_solve_b1024": {"sqp_solve": 1},
                        "forest_engine_b1024": {"knn_topk": 6, "sqp_solve": 3}},
-    "single robot tick": {"knn_topk": 11, "sqp_solve": 3},
-    "ablation tick": {"knn_topk": 8, "sqp_solve": 3},  # B=16 brute force: 3 x (edge + association) + prune + dedupe
+    "single robot tick": {"knn_topk": 11, "sqp_solve": 3, "render_raycast": 1},
+    # B=16 brute force: 3 x (edge + association) + prune + dedupe; the render
+    "ablation tick": {"knn_topk": 8, "sqp_solve": 3, "render_raycast": 1},
 }
 ABLATE_CONFIGS, ABLATE_TICKS, ABLATE_CHUNK = ("baseline", "margin006"), 150, 50
 ATTR_CHAIN, ATTR_REPS = 4, 3
@@ -2081,7 +2171,8 @@ def tools_phase(dev, flagship, forest_state) -> dict:
     prof = profile_solver.main(["--device", "cuda", "--batch", str(B), "--points", str(N_PTS)])
     launches = launch_counts()
     recs = prof["records"]
-    check(all(launches[k] > 0 for k in launches), f"19a profile_solver left a kernel unlaunched: {launches}")
+    check(all(launches[k] > 0 for k in ("knn_topk", "sqp_solve", "riccati_backward", "line_search")),
+          f"19a profile_solver left a solver or k-NN kernel unlaunched: {launches}")
     for name, want in TOOL_LAUNCHES["profile_solver"].items():
         check(recs[name]["launches"] == want, f"19a {name} launches {recs[name]['launches']} != {want}")
     same = torch.equal(prof["us_iters10"][:, 0], u0_fused)
@@ -2171,8 +2262,7 @@ def tools_phase(dev, flagship, forest_state) -> dict:
                                str(ABLATE_TICKS), "--chunk", str(ABLATE_CHUNK), "--out", str(out_dir)])
     launches = launch_counts()
     ticks = len(ABLATE_CONFIGS) * ABLATE_TICKS
-    want = {"riccati_backward": 0, "line_search": 0,
-            **{k: v * ticks for k, v in TOOL_LAUNCHES["ablation tick"].items()}}
+    want = want_launches(TOOL_LAUNCHES["ablation tick"], ticks)
     check(launches == want, f"19e ablate_barrier launches {launches} != {want}")
     for name, r in abl["results"].items():
         check(math.isfinite(r["min_clearance"]) and math.isfinite(r["final_x_mean"]), f"19e {name} not finite")
@@ -2602,8 +2692,7 @@ def nearest_points_phase(dev, forest_tick) -> dict:
     with record_knn_calls() as log:
         receding_step(state, quad, m, p, h)
     ks = dict(Counter(c[3] for c in log))
-    want = {"riccati_backward": 0, "line_search": 0,
-            **{k: v * NPN_TICKS for k, v in ENGINE_LAUNCHES["forest_10k"].items()}}
+    want = want_launches(ENGINE_LAUNCHES["forest_10k"], NPN_TICKS)
     box = control_box_ok(out, p.sp)
     check(launches == want and ks == {1: 3, NPN: 3} and box,
           f"phase 21 engine: launch counts {launches} != {want}, or k of one tick's launches {ks}, or u_cmd outside "
@@ -2632,7 +2721,7 @@ def nearest_points_phase(dev, forest_tick) -> dict:
         camp = mc.setup(mc.parse_args(argv))
     ks = dict(Counter(c[3] for c in log))
     per_tick = ENGINE_LAUNCHES["fleet closed loop"]
-    want = {"riccati_backward": 0, "line_search": 0, **{k: v * NPN_FLEET_TICKS for k, v in per_tick.items()}}
+    want = want_launches(per_tick, NPN_FLEET_TICKS)
     fin = all(math.isfinite(summary[f]) for f in ("final_x_mean", "min_clearance", "tick_ms_p50"))
     check(launches == want and ks.get(NPN) == 3 * NPN_FLEET_TICKS and camp.cfg.mpc.nearest_point_count == NPN
           and summary["ticks"] == NPN_FLEET_TICKS and fin,
@@ -2881,7 +2970,7 @@ def main() -> int:
     p50 = ticks_ms[TICKS // 2]
     conv_frac = float(conv.float().mean())
     mean_cost = float(cost.mean())
-    check(launches == {"knn_topk": TICKS, "sqp_solve": TICKS, "riccati_backward": 0, "line_search": 0},
+    check(launches == want_launches({"knn_topk": TICKS, "sqp_solve": TICKS}),
           f"launch counts {launches}: want knn and sqp {TICKS}, the per-phase kernels 0")
     check(bool(torch.isfinite(us).all()) and bool(torch.isfinite(cost).all()), "main path output not finite")
     check(tuple(us.shape) == (B, N_HORIZON, 4) and tuple(ref_c.shape) == (B, N_HORIZON, 10), "main path shapes")
@@ -3017,8 +3106,8 @@ def main() -> int:
         ev[i + 1].record()
     torch.cuda.synchronize()
     launches_f = launch_counts()
-    want_f = {"knn_topk": TICKS, "sqp_solve": 0, "riccati_backward": TICKS * (hp_f.iters + 1),
-              "line_search": TICKS * hp_f.iters}
+    want_f = want_launches({"knn_topk": TICKS, "riccati_backward": TICKS * (hp_f.iters + 1),
+                            "line_search": TICKS * hp_f.iters})
     check(launches_f == want_f, f"per-phase launch counts {launches_f} != {want_f}")
     ticks_f = sorted(ev[i].elapsed_time(ev[i + 1]) for i in range(TICKS))
     p50_f = ticks_f[TICKS // 2]
@@ -3087,6 +3176,9 @@ def main() -> int:
 
     # ---- 16. the single robot, full fidelity ----
     robot = single_robot_loop(dev)
+
+    # ---- 16b. the render kernel at the fleet's shape ----
+    render = render_phase(dev)
 
     # ---- 17. scale-out ----
     scale = scale_out(dev, smi)
@@ -3175,6 +3267,13 @@ def main() -> int:
          "ms_at": {"{} {} n_iter={}, 1 warp per SM".format(*MB_TIMED_ONE_WARP): mb["one_warp"]["ms"]},
          "bounds_at": {"{} {} n_iter={}, 1 warp per SM".format(*MB_TIMED_ONE_WARP): {
              k: mb["one_warp"][k] for k in ("bound_ms", "bound_by", "plain_ms")}}},
+        {"name": "render_raycast", "route": "cuda", "source": "avoid_mpc_torch/csrc/render.cu", "replaces": None,
+         "launches": fleet["launches"]["render_raycast"], "max_abs_err": render["max_abs_err"], "ms": render["ms"],
+         "plain_ms": render["plain_ms"], "bound_ms": render["bound_ms"], "bound_by": render["bound_by"],
+         "library_ms": None, "ms_at": {"render_depth call (inputs, noise draw, launch)": render["call_ms"]},
+         "launches_per_tick": {"fleet closed loop": fleet["launches"]["render_raycast"] // FLEET_TICKS,
+                               "single robot closed loop": robot["launches"]["render_raycast"] // SR_LOOP_TICKS,
+                               "vehicle link ingest": ingest["launches"]["render_raycast"] // INGEST_TICKS}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
 
